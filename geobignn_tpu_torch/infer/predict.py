@@ -1,0 +1,227 @@
+"""Inference pipeline: submesh stitching, normal-field integration, export.
+
+Counterpart of geobignn_tpu/infer/predict.py (Predictor.predict_mesh,
+denoise, update_positions and the body of predict_dir).  Per mesh: split
+into BFS patches of at most `sub_size` faces, build each patch's sample
+under one merged plan and one merged set of table widths (so every patch
+has the same shapes), run DualGNN on each patch, average the overlaps
+(int32 counters) and un-permute the RCM order, denormalize, then run the
+60-iteration vertex re-projection onto the predicted normal field, write
+`{name}-60.obj` and report the two angular errors.
+
+Not ported yet (ROADMAP): `Predictor.from_run` and run pinning (they read
+the JAX msgpack checkpoint), the CLI, and the halo-sharded path.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import time
+
+import numpy as np
+import torch
+
+from geobignn_tpu_torch import geometry, meshio
+from geobignn_tpu_torch.config import Config
+from geobignn_tpu_torch.data import builder, dataset as ds_mod
+from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu_torch.utils import resolve_device
+
+
+def update_positions(
+    points: torch.Tensor,  # (N, 3)
+    fv_indices: torch.Tensor,  # (F, 3)
+    vf_indices: torch.Tensor,  # (N, K), -1 padded
+    face_normals: torch.Tensor,  # (F, 3)
+    n_iter: int = 60,
+    depth_direction: torch.Tensor | None = None,
+    use_depth: bool = False,
+) -> torch.Tensor:
+    """Iteratively move each vertex by the mean over adjacent faces of
+    ((c_f - v) . n_f) n_f — integrating the predicted normal field."""
+    n_faces = fv_indices.shape[0]
+    valid = vf_indices >= 0
+    v_adj = torch.clamp(valid.sum(-1, keepdim=True), min=1).to(points.dtype)
+    vf_safe = torch.where(valid, vf_indices, torch.full_like(vf_indices, n_faces))
+    zero = face_normals.new_zeros((1, 3))
+    adj_n = torch.cat([face_normals, zero])[vf_safe]  # (N, K, 3)
+    pts = points
+    for _ in range(n_iter):
+        face_cent = pts[fv_indices].mean(dim=1)
+        v_cx = torch.cat([face_cent, zero])[vf_safe] - pts[:, None, :]
+        d = (adj_n * v_cx).sum(-1, keepdim=True)
+        move = (adj_n * d).sum(dim=1) / v_adj
+        if use_depth:
+            move = (move * depth_direction).sum(1, keepdim=True) * depth_direction
+        pts = pts + move
+    return pts
+
+
+class Predictor:
+    """Denoises meshes (whole or patch-stitched) with given weights.
+
+    `params` is a DualGNN state dict (params.from_jax_params, params.load_npz
+    or a module's state_dict()).  Runs on CUDA unless device="cpu"."""
+
+    def __init__(self, cfg: Config, params: dict, sub_size: int | None = None,
+                 device=None):
+        self.cfg = cfg
+        self.sub_size = sub_size or cfg.sub_size
+        self.device = resolve_device(device)
+        self.model = DualGNN(
+            force_depth=cfg.force_depth, pool_type=cfg.pool_type,
+            heads=cfg.heads, fusion=getattr(cfg, "fusion_features", 0),
+            fc_dtype=(torch.bfloat16
+                      if getattr(cfg, "fc_precision", "float32") == "bfloat16"
+                      else None),
+            device=self.device,
+        )
+        self.model.load_state_dict(params)
+        self.model.eval()
+
+    def _apply(self, sample):
+        with torch.no_grad():
+            vert_p, norm_p = self.model(sample.to(self.device))
+        return vert_p.cpu().numpy(), norm_p.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def patch_dataset(self, mesh_n: meshio.TriMesh) -> ds_mod.InMemoryDataset:
+        """The mesh's patches as a dataset with one merged plan and one set
+        of merged table widths, so every patch has the same shapes."""
+        bc = self.cfg.build_config()
+        entries = ds_mod.process_one_mesh(mesh_n, self.sub_size, None, bc)
+
+        plan = None
+        for bv, bf, _, _, _ in entries:
+            p = builder.plan_for(bv, bf, bc.granularity)
+            plan = p if plan is None else plan.merge(p)
+
+        mem = ds_mod.InMemoryDataset.__new__(ds_mod.InMemoryDataset)
+        mem.entries = entries
+        mem.plan = plan
+        mem.build_cfg = bc
+        widths = None
+        for bv, bf, meta_, _, _ in entries:
+            w = builder.widths_for(bv, bf, meta_["fv_indices"],
+                                   with_bands=bc.reorder)
+            widths = w if widths is None else widths.merge(w)
+        mem.widths = widths
+        return mem
+
+    def predict_mesh(self, mesh_n: meshio.TriMesh):
+        """Returns (denoised positions before integration, face normals)."""
+        mem = self.patch_dataset(mesh_n)
+        entries = mem.entries
+
+        def unpermute(arr, perm):
+            """Predictions are in the build-time RCM order; map back."""
+            if perm is None:
+                return arr
+            out = np.empty_like(arr)
+            out[perm] = arr
+            return out
+
+        if len(entries) == 1:
+            vert_p, norm_p = self._apply(mem.get(0))
+            nv, nf = mesh_n.n_vertices, mesh_n.n_faces
+            meta_ = entries[0][2]
+            vp = unpermute(vert_p[:nv], meta_.get("perm_v"))
+            np_arr = unpermute(norm_p[:nf], meta_.get("perm_f"))
+        else:
+            # overlap-averaged stitching (int32 counters)
+            count_v = np.zeros((mesh_n.n_vertices, 1), dtype=np.int32)
+            vp = np.zeros((mesh_n.n_vertices, 3), dtype=np.float32)
+            np_arr = np.zeros((mesh_n.n_faces, 3), dtype=np.float32)
+            for i, (bv, bf, meta_, v_idx, f_idx) in enumerate(entries):
+                vert_p, norm_p = self._apply(mem.get(i))
+                count_v[v_idx] += 1
+                vp[v_idx] += unpermute(vert_p[: bv.n_nodes], meta_.get("perm_v"))
+                np_arr[f_idx] += unpermute(norm_p[: bf.n_nodes], meta_.get("perm_f"))
+            vp /= np.maximum(count_v, 1)
+            norms = np.linalg.norm(np_arr, axis=1, keepdims=True)
+            np_arr /= np.maximum(norms, 1e-12)
+
+        meta = entries[0][2]
+        vp = vp / meta["scale"] + meta["centroid"]  # denormalize
+        return vp.astype(np.float32), np_arr.astype(np.float32)
+
+    def denoise(self, mesh_n: meshio.TriMesh, n_update_iters: int = 60
+                ) -> tuple[np.ndarray, np.ndarray]:
+        """Full pipeline: predict + integrate normals; returns (V, Np)."""
+        vp, np_arr = self.predict_mesh(mesh_n)
+        dev = self.device
+        depth = None
+        use_depth = self.cfg.force_depth
+        if use_depth:
+            d = np.maximum(np.linalg.norm(mesh_n.points, axis=1, keepdims=True), 1e-12)
+            depth = torch.from_numpy((mesh_n.points / d).astype(np.float32)).to(dev)
+        v = update_positions(
+            torch.from_numpy(vp).to(dev),
+            torch.from_numpy(mesh_n.fv_indices.astype(np.int64)).to(dev),
+            torch.from_numpy(mesh_n.vf_indices.astype(np.int64)).to(dev),
+            torch.from_numpy(np_arr).to(dev),
+            n_iter=n_update_iters,
+            depth_direction=depth,
+            use_depth=use_depth,
+        )
+        return v.cpu().numpy(), np_arr
+
+
+def _angular_error(np_pred: np.ndarray, n_true: np.ndarray) -> float:
+    err = ((np_pred - n_true) ** 2).sum(1)
+    val = np.clip(1.0 - err / 2.0, -1.0, 1.0)
+    return float(np.degrees(np.arccos(val)).mean())
+
+
+def predict_dir_body(pred: Predictor, data_dir: str | None = None,
+                     dataset_root: str | None = None,
+                     n_update_iters: int = 60) -> dict:
+    """Denoise every test mesh of the config's data_type (or every .obj of
+    `data_dir`); writes `{name}-{n_update_iters}.obj` into `result_{flag}`
+    and reports face-weighted angle1/angle2 means."""
+    cfg = pred.cfg
+    if data_dir is None:
+        root = dataset_root or cfg.dataset_dir
+        data_dir = os.path.join(root, cfg.data_type, "test")
+        list_txt = (
+            "test_list.txt"
+            if os.path.exists(os.path.join(root, cfg.data_type, "test_list.txt"))
+            else None
+        )
+        pairs = list(ds_mod.discover_mesh_pairs(root, cfg.data_type, "test", list_txt))
+    else:
+        pairs = [(p, None) for p in sorted(glob.glob(os.path.join(data_dir, "*.obj")))]
+
+    result_dir = os.path.join(data_dir, f"result_{cfg.flag}")
+    os.makedirs(result_dir, exist_ok=True)
+
+    rows = []
+    for noisy_path, orig_path in pairs:
+        t0 = time.time()
+        mesh_n = meshio.read_obj(noisy_path)
+        v, np_arr = pred.denoise(mesh_n, n_update_iters)
+        base = os.path.splitext(os.path.basename(noisy_path))[0]
+        out_path = os.path.join(result_dir, f"{base}-{n_update_iters}.obj")
+        meshio.write_obj(out_path, v, mesh_n.fv_indices)
+
+        angle1 = angle2 = 0.0
+        if orig_path is not None:
+            mesh_o = meshio.read_obj(orig_path)
+            nt = geometry.face_normals_np(mesh_o.points, mesh_o.fv_indices)
+            angle1 = _angular_error(np_arr, nt)
+            np2 = geometry.face_normals_np(v, mesh_n.fv_indices)
+            angle2 = _angular_error(np2, nt)
+        dt = time.time() - t0
+        rows.append(dict(name=base, faces=mesh_n.n_faces, angle1=angle1,
+                         angle2=angle2, seconds=dt))
+        print(
+            f"angle1: {angle1:9.6f}  angle2: {angle2:9.6f}  "
+            f"faces: {mesh_n.n_faces:>6}  time: {dt:7.3f}s  '{base}'"
+        )
+
+    total_f = sum(r["faces"] for r in rows) or 1
+    mean1 = sum(r["faces"] * r["angle1"] for r in rows) / total_f
+    mean2 = sum(r["faces"] * r["angle2"] for r in rows) / total_f
+    print(f"Num_face: {total_f}, angle_mean1: {mean1:.6f}, angle_mean2: {mean2:.6f}")
+    return dict(rows=rows, angle_mean1=mean1, angle_mean2=mean2, result_dir=result_dir)
