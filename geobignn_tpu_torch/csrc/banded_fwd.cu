@@ -37,9 +37,7 @@
 // Later work: mma/wgmma tiles and skipping all-zero mask chunks (about 12 of
 // 768 window slots are set per facet row).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "banded_common.cuh"
 
 namespace {
 
@@ -47,45 +45,6 @@ constexpr int kRows = 32;     // rows of one band block per CTA
 constexpr int kWin = 32;      // window columns per staged chunk
 constexpr int kCols = 128;    // accumulator columns (of H*C) per pass
 constexpr int kThreads = 256;
-constexpr int kMaxHeads = 16;
-constexpr int kMaxOut = 128;  // 4 column groups of 32
-
-__device__ __forceinline__ float cd(float v, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-// V (N, H*cv) row-major: the window operand, built once per node.
-__global__ void window_operand_kernel(const float* __restrict__ p,
-                                      const float* __restrict__ x,
-                                      const float* __restrict__ w,
-                                      float* __restrict__ v, int n, int heads,
-                                      int c_in, int c_out, int tf, int bf16) {
-  const int cv = tf ? c_out : c_in;
-  const int kk = heads * cv;
-  const long long total = (long long)n * kk;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long node = e / kk;
-    const int col = (int)(e - node * kk);
-    const int h = col / cv;
-    const int k = col - h * cv;
-    const float ph = p[node * heads + h];
-    float val;
-    if (tf) {
-      const float* xr = x + node * c_in;
-      const float* wc = w + (long long)h * c_in * c_out + k;
-      float acc = 0.f;
-      for (int c = 0; c < c_in; ++c) {
-        acc = fmaf(cd(wc[(long long)c * c_out], bf16), cd(xr[c], bf16), acc);
-      }
-      val = ph * acc;
-    } else {
-      val = ph * x[node * c_in + k];
-    }
-    v[e] = cd(val, bf16);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 banded_window_kernel(const float* __restrict__ r, const float* __restrict__ p,
@@ -239,11 +198,9 @@ int gbn_banded_aggregate_fwd(const float* r, const float* p, const float* x,
                              int c_out, int tf, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cv = tf ? c_out : c_in;
-  const long long total = (long long)n * heads * cv;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 65535LL * 8) blocks = 65535LL * 8;
-  window_operand_kernel<<<(unsigned)blocks, 256, 0, s>>>(p, x, w, v, n, heads,
-                                                         c_in, c_out, tf, bf16);
+  window_operand_kernel<<<elementwise_blocks((long long)n * heads * cv), 256, 0,
+                          s>>>(p, x, w, v, nullptr, n, heads, c_in, c_out, tf,
+                               bf16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   banded_window_kernel<<<n / kRows, kThreads, 0, s>>>(r, p, v, w, m, out, n,

@@ -1,10 +1,11 @@
 """Mesh datasets: BFS submesh splitting, per-patch preprocessing, padding.
 
-Counterpart of the inference-path part of geobignn_tpu/data/dataset.py:
-`split_mesh`, `process_one_mesh`, `discover_mesh_pairs`,
-`BaseDualDataset.get` and `InMemoryDataset`, copied so that patches and
-padded samples are identical to the JAX package's.  The disk-backed
-`DualDataset`, its cache and size bucketing belong to the training slice.
+Counterpart of part of geobignn_tpu/data/dataset.py: `split_mesh`,
+`process_one_mesh`, `discover_mesh_pairs`, `branch_messages`,
+`BaseDualDataset.get` / `messages_per_sample` and `InMemoryDataset`, copied
+so that patches and padded samples are identical to the JAX package's.  The
+disk-backed `DualDataset`, its cache and size bucketing are not ported yet
+(ROADMAP: modules to port, the rest of the package).
 """
 
 from __future__ import annotations
@@ -12,12 +13,14 @@ from __future__ import annotations
 import glob
 import os
 import sys
+from collections import Counter
 
 import numpy as np
 
 from geobignn_tpu_torch import geometry, graphs, structs
 from geobignn_tpu_torch.data import builder
 from geobignn_tpu_torch.meshio import TriMesh, read_obj
+from geobignn_tpu_torch.models.dual_gnn import CONV_SCHEDULE
 
 
 def split_mesh(
@@ -122,6 +125,17 @@ def discover_mesh_pairs(
     return pairs
 
 
+def branch_messages(b: builder.RawBranch) -> int:
+    """Real (unpadded) FeaStConv edge messages per forward of one branch:
+    per-level conv counts from the model's CONV_SCHEDULE times the REAL edge
+    count at each U-Net level — the numerator of the edges/s metric,
+    counted as the JAX package counts it."""
+    per_lvl = Counter(lvl for _, lvl, _, _ in CONV_SCHEDULE)
+    e = (b.edge_index.shape[1], b.specs[0].edge_index.shape[1],
+         b.specs[1].edge_index.shape[1])
+    return sum(per_lvl[lvl] * e[lvl] for lvl in range(3))
+
+
 class BaseDualDataset:
     """Entries + shared SizePlan/TableWidths + padding-on-get.  `get`
     attaches the tables and band structures (ops/table.py, attach_band)
@@ -148,6 +162,12 @@ class BaseDualDataset:
 
     def __len__(self) -> int:
         return len(self.entries)
+
+    def messages_per_sample(self) -> np.ndarray:
+        """(n_entries,) int64 real conv edge-messages per training forward
+        (both branches) — lets the trainer log edges/s per epoch."""
+        return np.asarray([branch_messages(bv) + branch_messages(bf)
+                           for bv, bf, _, _, _ in self.entries], dtype=np.int64)
 
     def get(self, idx: int, plan: structs.SizePlan | None = None) -> structs.DualSample:
         bv, bf, meta, _, _ = self.entries[idx]

@@ -1,4 +1,4 @@
-"""The shipped model: graph U-Net branches + bi-domain cascade (forward).
+"""The shipped model: graph U-Net branches + bi-domain cascade.
 
 Counterpart of geobignn_tpu/models/dual_gnn.py, as torch modules whose
 parameter names follow the flax tree (gnn_v.l_conv1.u, fc_v1.kernel, ...),
@@ -27,7 +27,7 @@ from geobignn_tpu_torch import geometry, params as params_mod
 from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.ops import table as tbl
 from geobignn_tpu_torch.structs import BranchGraph, DualSample, GraphLevel
-from geobignn_tpu_torch.utils import resolve_device
+from geobignn_tpu_torch.utils import not_ported, resolve_device
 
 LEAKY_SLOPE = 0.2  # reference uses F.leaky_relu(x, 0.2) throughout
 
@@ -49,12 +49,6 @@ def _act(v):
     return F.leaky_relu(v, LEAKY_SLOPE)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to geobignn_tpu_torch yet (ROADMAP: {item})"
-    )
-
-
 class FeaStConv(nn.Module):
     """FeaStConv with per-head weights; dispatches on the level's structures
     like the JAX module (dual_gnn.py:80-139)."""
@@ -70,16 +64,16 @@ class FeaStConv(nn.Module):
     def forward(self, x: torch.Tensor, level: GraphLevel) -> torch.Tensor:
         if level.band is None:
             if level.nbr is not None:
-                _not_ported("the dense-table FeaStConv (feast_conv_table)",
-                            "modules to port, non-band conv paths")
-            _not_ported("the COO FeaStConv (feast_conv)",
-                        "modules to port, non-band conv paths")
+                not_ported("the dense-table FeaStConv (feast_conv_table)",
+                           "modules to port, non-band conv paths")
+            not_ported("the COO FeaStConv (feast_conv)",
+                       "modules to port, non-band conv paths")
         if level.blk_idx is not None:
-            _not_ported("the block-sparse FeaStConv (TPU kernels #5/#6)",
-                        "TPU kernels to port, kernels #5/#6")
+            not_ported("the block-sparse FeaStConv (TPU kernels #5/#6)",
+                       "TPU kernels to port, kernels #5/#6")
         if level.jnodes is None and level.nbr_b is not None:
-            _not_ported("the boundary-table hybrid conv (feast_conv_hybrid)",
-                        "modules to port, non-band conv paths")
+            not_ported("the boundary-table hybrid conv (feast_conv_hybrid)",
+                       "modules to port, non-band conv paths")
         dt = x.dtype
         params = {"u": self.u.to(dt), "c": self.c.to(dt), "w": self.w.to(dt),
                   "b": self.b.to(dt)}
@@ -102,8 +96,8 @@ def pool_features(x: torch.Tensor, steps, pool_type: str = "max") -> torch.Tenso
     """Apply coarsening rounds as gathers over the member tables."""
     for st in steps:
         if st.members is None:
-            _not_ported("segment pooling without member tables",
-                        "modules to port, non-band conv paths")
+            not_ported("segment pooling without member tables",
+                       "modules to port, non-band conv paths")
         if pool_type == "max":
             x = tbl.gather_pool_max(x, st.members, st.rev, st.mmask)
         elif pool_type == "mean":
@@ -174,8 +168,8 @@ class DualGNN(nn.Module):
                  fc_dtype=None, device=None, seed: int = 0):
         super().__init__()
         if fusion:
-            _not_ported("the DualFusionLayer (fusion > 0, models/fusion.py)",
-                        "modules to port, the rest of the package")
+            not_ported("the DualFusionLayer (fusion > 0, models/fusion.py)",
+                       "modules to port, the rest of the package")
         dev = resolve_device(device)
         self.force_depth = force_depth
         fdt = fc_dtype or compute_dtype

@@ -410,11 +410,14 @@ def window(x_pad: torch.Tensor, tile: int) -> torch.Tensor:
 
 def factorized_softmax(x: torch.Tensor, u: torch.Tensor, c: torch.Tensor):
     """p_h(j) = exp(u_h.x_j - max), r_h(i) = exp(c_h - u_h.x_i - max): the
-    per-node halves of the FeaSt head softmax (max-shifted per node)."""
+    per-node halves of the FeaSt head softmax (max-shifted per node).  The
+    shifts are detached, as the JAX package's stop_gradient: the aggregate
+    is invariant to a per-node scaling of p and r, so no gradient flows
+    through them."""
     a = x @ u  # (N, H)
-    p = torch.exp(a - a.amax(dim=1, keepdim=True))
+    p = torch.exp(a - a.amax(dim=1, keepdim=True).detach())
     ca = c - a
-    r = torch.exp(ca - ca.amax(dim=1, keepdim=True))
+    r = torch.exp(ca - ca.amax(dim=1, keepdim=True).detach())
     return p, r
 
 

@@ -1,20 +1,22 @@
-"""Banded FeaStConv aggregate on Hopper: kernel wrapper and plain versions.
+"""Banded FeaStConv aggregate on Hopper: kernel wrappers and plain versions.
 
-Counterpart of geobignn_tpu/ops/banded_pallas.py (forward only).  It holds
+Counterpart of geobignn_tpu/ops/banded_pallas.py.  It holds
 
-  * `banded_aggregate`, which launches the hand-written CUDA kernel
-    (csrc/banded_fwd.cu) for CUDA tensors and runs the plain PyTorch version
-    for CPU tensors — nothing else decides the route;
+  * `banded_aggregate`, one autograd Function for CUDA and CPU tensors: on
+    CUDA tensors its forward and backward launch the hand-written kernels
+    (csrc/banded_fwd.cu, csrc/banded_bwd.cu), on CPU tensors they run the
+    plain PyTorch versions — nothing else decides the route;
   * the plain versions of both schedules (aggregate-first and
-    transform-first), which repeat the Pallas bodies' casts at the same
-    points; with compute_dtype=torch.float32 they are exact float32 math;
+    transform-first), forward and backward, which repeat the Pallas bodies'
+    casts at the same points; with compute_dtype=torch.float32 they are
+    exact float32 math;
   * `feast_conv_banded_kernel` (the counterpart of
     `feast_conv_banded_pallas`) and `feast_conv_hybrid_band`.
 
-The kernel is built with nvcc for sm_90a into build/geobignn_tpu_torch/ at
-first use, from the repo's sources only, and loaded through ctypes.  Each
-schedule counts its launches in `LAUNCHES`.  The backward (TPU kernels #3
-and #4) belongs to the training slice: the autograd Function raises.
+Each kernel source is built with nvcc for sm_90a into its own library under
+build/geobignn_tpu_torch/ at first use (one nvcc per source, started
+together), from the repo's sources only, and loaded through ctypes.  Each
+schedule counts its forward and backward launches in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -30,16 +32,20 @@ import torch
 from geobignn_tpu_torch.ops.banded import self_loop_epilogue, window, factorized_softmax
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "banded_fwd.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+SOURCES = {"fwd": os.path.join(_CSRC, "banded_fwd.cu"),
+           "bwd": os.path.join(_CSRC, "banded_bwd.cu")}
+HEADERS = (os.path.join(_CSRC, "banded_common.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "geobignn_tpu_torch")
-LIBRARY = os.path.join(BUILD_DIR, "libbanded_fwd.so")
+LIBRARIES = {k: os.path.join(BUILD_DIR, f"libbanded_{k}.so") for k in SOURCES}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches per schedule, counted where the wrapper launches
-LAUNCHES = {"aggregate_first": 0, "transform_first": 0}
+# kernel launches per schedule and direction, counted where the wrappers launch
+LAUNCHES = {"aggregate_first": 0, "transform_first": 0,
+            "aggregate_first_bwd": 0, "transform_first_bwd": 0}
 
-_lib = None
+_libs: dict = {}
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (registers, smem)
 
 
@@ -51,42 +57,67 @@ def reset_launches() -> None:
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the banded CUDA kernel cannot be built")
+        raise RuntimeError("nvcc not found: the banded CUDA kernels cannot be built")
     return found
 
 
+def _stale(key: str) -> bool:
+    lib = LIBRARIES[key]
+    if not os.path.exists(lib):
+        return True
+    newest = max(os.path.getmtime(f) for f in (SOURCES[key], *HEADERS))
+    return os.path.getmtime(lib) < newest
+
+
 def build(force: bool = False) -> float:
-    """Compile csrc/banded_fwd.cu unless an up-to-date library exists.
-    Returns the seconds nvcc took (0.0 when nothing was built)."""
+    """Compile every kernel library older than its source or the shared
+    header, one nvcc per source, all started together.  Returns the seconds
+    the builds took (0.0 when nothing was built)."""
     global BUILD_LOG
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+    todo = [k for k in SOURCES if force or _stale(k)]
+    if not todo:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
-    os.replace(tmp, LIBRARY)
+    procs = {}
+    for k in todo:
+        tmp = f"{LIBRARIES[k]}.{os.getpid()}.tmp"
+        procs[k] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[k]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for k, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {SOURCES[k]}\n{out}")
+        if proc.returncode != 0:
+            failed.append(SOURCES[k])
+        else:
+            os.replace(tmp, LIBRARIES[k])
+    BUILD_LOG = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
     return time.perf_counter() - t0
 
 
 def _load():
-    global _lib
-    if _lib is None:
+    if not _libs:
         build()
-        lib = ctypes.CDLL(LIBRARY)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gbn_banded_aggregate_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
-        lib.gbn_banded_aggregate_fwd.restype = ci
-        for name in ("gbn_banded_rows_per_cta", "gbn_banded_max_heads",
-                     "gbn_banded_max_out"):
-            getattr(lib, name).restype = ci
-        _lib = lib
-    return _lib
+        fwd = ctypes.CDLL(LIBRARIES["fwd"])
+        fwd.gbn_banded_aggregate_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        fwd.gbn_banded_aggregate_fwd.restype = ci
+        bwd = ctypes.CDLL(LIBRARIES["bwd"])
+        bwd.gbn_banded_aggregate_bwd.argtypes = [vp] * 15 + [ci] * 7 + [vp]
+        bwd.gbn_banded_aggregate_bwd.restype = ci
+        for lib, names in ((fwd, ("gbn_banded_rows_per_cta", "gbn_banded_max_heads",
+                                  "gbn_banded_max_out")),
+                           (bwd, ("gbn_banded_bwd_nodes_per_cta",
+                                  "gbn_banded_bwd_max_heads",
+                                  "gbn_banded_bwd_max_width"))):
+            for name in names:
+                getattr(lib, name).restype = ci
+        _libs.update(fwd=fwd, bwd=bwd)
+    return _libs
 
 
 def use_transform_first(c_in: int, c_out: int) -> bool:
@@ -105,12 +136,17 @@ def _cast(t: torch.Tensor, compute_dtype) -> torch.Tensor:
     return t.to(compute_dtype).to(torch.float32)
 
 
+def _block_d(r, p, m):
+    """Per block: r (B, T, H), the p window (B, 3T, H) and D = r pᵀ (B, T, 3T)."""
+    n_blk, tile, _ = m.shape
+    r_blk = r.reshape(n_blk, tile, r.shape[1])
+    p_win = window(p, tile)
+    return r_blk, p_win, torch.einsum("bth,bwh->btw", r_blk, p_win)
+
+
 def _block_weights(r, p, m, compute_dtype):
     """A = cd(M / max(rᵀp, 1e-12)) per block: (B, T, 3T), and r per block."""
-    n_blk, tile, _ = m.shape
-    heads = r.shape[1]
-    r_blk = r.reshape(n_blk, tile, heads)
-    d = torch.einsum("bth,bwh->btw", r_blk, window(p, tile))
+    r_blk, _, d = _block_d(r, p, m)
     return _cast(m.to(torch.float32) / torch.clamp(d, min=1e-12), compute_dtype), r_blk
 
 
@@ -151,20 +187,117 @@ def banded_aggregate_plain(r, p, x, w, m, compute_dtype=torch.bfloat16):
     return aggregate_first_plain(r, p, x, w, m, compute_dtype)
 
 
+def _bwd_weights(r, p, m, compute_dtype):
+    """Per block: r (B, T, H), the p window (B, 3T, H), cd(M/D) and the clamp
+    subgradient mdd = where(D > 1e-12, -(M/D)/D, 0), both (B, T, 3T)."""
+    r_blk, p_win, d = _block_d(r, p, m)
+    dinv = 1.0 / torch.clamp(d, min=1e-12)
+    minv = m.to(torch.float32) * dinv
+    mdd = torch.where(d > 1e-12, -minv * dinv, torch.zeros_like(d))
+    return r_blk, p_win, _cast(minv, compute_dtype), mdd
+
+
+def _fold_windows(slabs: torch.Tensor, tile: int) -> torch.Tensor:
+    """(B, 3T, C) per-block window cotangents -> (N, C) node rows by the
+    overlap-add of `_fold_windows_T` (banded_pallas.py:494-504)."""
+    n_blk, _, c = slabs.shape
+    parts = slabs.reshape(n_blk, 3, tile, c)
+    z = slabs.new_zeros((1, tile, c))
+    prev = torch.cat([parts[1:, 0], z])  # block b+1's "previous" third
+    nxt = torch.cat([z, parts[:-1, 2]])  # block b-1's "next" third
+    return (prev + parts[:, 1] + nxt).reshape(n_blk * tile, c)
+
+
+def _head_sum(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., H*S) -> (..., H): the sum of each head's strip."""
+    return t.reshape(*t.shape[:-1], heads, -1).sum(dim=-1)
+
+
+def aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16):
+    """Plain version of TPU kernel #3 (`_bwd_kernel`, banded_pallas.py:
+    241-321): minv, xpw, gout, w, zr, gz and ybar in compute_dtype; a, K,
+    dbar and the r̄/p̄ denominator parts in f32.  Returns (r̄, p̄, x̄, W̄), f32."""
+    n_blk, tile, _ = m.shape
+    n, c_in = x.shape
+    heads, _, c_out = w.shape
+    r_blk, p_win, minv_c, mdd = _bwd_weights(r, p, m, compute_dtype)
+    x_win = window(x, tile)
+    xpw = _cast((p_win[..., :, None] * x_win[..., None, :]).flatten(2), compute_dtype)
+    rw = r_blk.repeat_interleave(c_in, dim=2)  # (B, T, H*C_in)
+    gt_c = _cast(gout.to(torch.float32).reshape(n_blk, tile, c_out), compute_dtype)
+    w_flat = _cast(w.reshape(heads * c_in, c_out), compute_dtype)
+
+    z = minv_c @ xpw  # (B, T, H*C_in), the forward recompute
+    gy = gt_c @ w_flat.T  # cotangent at zr
+    zr = _cast(z * rw, compute_dtype)
+    wbar = zr.transpose(1, 2) @ gt_c  # per-block W̄ slabs
+    rbar_direct = _head_sum(_cast(gy * z, compute_dtype), heads)
+    ybar = _cast(gy * rw, compute_dtype)
+    a = minv_c.transpose(1, 2) @ ybar  # (B, 3T, H*C_in)
+    a4 = a.reshape(n_blk, 3 * tile, heads, c_in)
+    xbar_win = (p_win[..., None] * a4).sum(dim=2)
+    pbar_direct = (a4 * x_win[:, :, None, :]).sum(dim=3)
+    dbar = mdd * (ybar @ xpw.transpose(1, 2))  # the denominator path
+    rbar = rbar_direct + dbar @ p_win
+    pbar_win = pbar_direct + dbar.transpose(1, 2) @ r_blk
+    return (rbar.reshape(n, heads), _fold_windows(pbar_win, tile),
+            _fold_windows(xbar_win, tile), wbar.sum(dim=0).reshape(heads, c_in, c_out))
+
+
+def transform_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16):
+    """Plain version of TPU kernel #4 (`_bwd_body_tf`, banded_pallas.py:
+    159-217): minv, x, w2, ypw, gz*z, zbar, y*ybarpw and ybar in
+    compute_dtype (gout itself is not cast); K, dbar and the r̄/p̄
+    denominator parts in f32.  Returns (r̄, p̄, x̄, W̄), f32."""
+    n_blk, tile, _ = m.shape
+    n, c_in = x.shape
+    heads, _, c_out = w.shape
+    r_blk, p_win, minv_c, mdd = _bwd_weights(r, p, m, compute_dtype)
+    xw_c = _cast(window(x, tile), compute_dtype)
+    w2 = _cast(w.permute(0, 2, 1).reshape(heads * c_out, c_in), compute_dtype)
+    pw = p_win.repeat_interleave(c_out, dim=2)  # (B, 3T, H*C_out)
+    rw = r_blk.repeat_interleave(c_out, dim=2)  # (B, T, H*C_out)
+    gz = gout.to(torch.float32).reshape(n_blk, tile, c_out).repeat(1, 1, heads)
+
+    y = xw_c @ w2.T  # (B, 3T, H*C_out), the forward recompute
+    ypw = _cast(pw * y, compute_dtype)
+    z = minv_c @ ypw
+    rbar_direct = _head_sum(_cast(gz * z, compute_dtype), heads)
+    zbar = _cast(gz * rw, compute_dtype)
+    ybarpw = minv_c.transpose(1, 2) @ zbar  # (B, 3T, H*C_out)
+    dbar = mdd * (zbar @ ypw.transpose(1, 2))  # the denominator path
+    rbar = rbar_direct + dbar @ p_win
+    pbar_win = (_head_sum(_cast(y * ybarpw, compute_dtype), heads)
+                + dbar.transpose(1, 2) @ r_blk)
+    ybar = _cast(pw * ybarpw, compute_dtype)
+    xbar_win = ybar @ w2  # (B, 3T, C_in)
+    wbar = ybar.transpose(1, 2) @ xw_c  # per-block W̄2 slabs (H*C_out, C_in)
+    dw = wbar.sum(dim=0).reshape(heads, c_out, c_in).transpose(1, 2)
+    return (rbar.reshape(n, heads), _fold_windows(pbar_win, tile),
+            _fold_windows(xbar_win, tile), dw)
+
+
+def banded_aggregate_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16):
+    c_in, c_out = w.shape[1], w.shape[2]
+    if use_transform_first(c_in, c_out):
+        return transform_first_bwd_plain(r, p, x, w, m, gout, compute_dtype)
+    return aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype)
+
+
 # --------------------------------------------------------------------------
-# the kernel
+# the kernels
 # --------------------------------------------------------------------------
 
-def _launch(r, p, x, w, m, compute_dtype) -> torch.Tensor:
-    lib = _load()
+def _check(r, p, x, w, m, compute_dtype, gout=None):
     n_blk, tile, win = m.shape
     n, c_in = x.shape
     heads = r.shape[1]
-    c_out = w.shape[2]
     dev = x.device
-    for name, t, dt in (("r", r, torch.float32), ("p", p, torch.float32),
-                        ("x", x, torch.float32), ("w", w, torch.float32),
-                        ("m", m, torch.int8)):
+    named = [("r", r, torch.float32), ("p", p, torch.float32),
+             ("x", x, torch.float32), ("w", w, torch.float32), ("m", m, torch.int8)]
+    if gout is not None:
+        named.append(("gout", gout, torch.float32))
+    for name, t, dt in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
         if t.dtype != dt:
@@ -178,6 +311,18 @@ def _launch(r, p, x, w, m, compute_dtype) -> torch.Tensor:
     if r.shape != (n, heads) or p.shape != (n, heads) or w.shape[:2] != (heads, c_in):
         raise ValueError(f"shapes r {tuple(r.shape)} p {tuple(p.shape)} "
                          f"w {tuple(w.shape)} x {tuple(x.shape)} disagree")
+    if gout is not None and gout.shape != (n, w.shape[2]):
+        raise ValueError(f"gout {tuple(gout.shape)} is not ({n}, {w.shape[2]})")
+
+
+def _launch(r, p, x, w, m, compute_dtype) -> torch.Tensor:
+    lib = _load()["fwd"]
+    _check(r, p, x, w, m, compute_dtype)
+    tile = m.shape[1]
+    n, c_in = x.shape
+    heads = r.shape[1]
+    c_out = w.shape[2]
+    dev = x.device
     if tile % lib.gbn_banded_rows_per_cta():
         raise ValueError(f"tile {tile} is not a multiple of "
                          f"{lib.gbn_banded_rows_per_cta()}")
@@ -200,18 +345,83 @@ def _launch(r, p, x, w, m, compute_dtype) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(r, p, x, w, m, gout, compute_dtype):
+    """TPU kernels #3/#4 on Hopper: (r̄, p̄, x̄, W̄) in f32."""
+    lib = _load()["bwd"]
+    _check(r, p, x, w, m, compute_dtype, gout)
+    n_blk, tile, _ = m.shape
+    n, c_in = x.shape
+    heads = r.shape[1]
+    c_out = w.shape[2]
+    dev = x.device
+    tf = use_transform_first(c_in, c_out)
+    cv = c_out if tf else c_in
+    if tile % 32 or n % lib.gbn_banded_bwd_nodes_per_cta():
+        raise ValueError(f"tile {tile} / n {n} do not fit the backward kernel")
+    if heads > lib.gbn_banded_bwd_max_heads() or cv > lib.gbn_banded_bwd_max_width():
+        raise ValueError(f"heads {heads} / width {cv} exceed the backward kernel's "
+                         f"{lib.gbn_banded_bwd_max_heads()} / "
+                         f"{lib.gbn_banded_bwd_max_width()}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    v, g, y_or_gy, wl = torch.empty((4, n, heads * cv), **f32)
+    wpart = torch.empty((n_blk, heads * cv, c_in if tf else c_out), **f32)
+    rbar = torch.empty((n, heads), **f32)
+    pbar = torch.empty((n, heads), **f32)
+    xbar = torch.empty((n, c_in), **f32)
+    y, gy = (y_or_gy, None) if tf else (None, y_or_gy)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gbn_banded_aggregate_bwd(
+            *(ptr(t) for t in (r, p, x, w, m, gout, v, g, y, gy, wl, wpart,
+                               rbar, pbar, xbar)),
+            n, tile, heads, c_in, c_out, int(tf),
+            int(compute_dtype == torch.bfloat16), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"banded aggregate backward launch failed: CUDA error {rc}")
+    LAUNCHES["transform_first_bwd" if tf else "aggregate_first_bwd"] += 1
+    wbar = wpart.sum(dim=0)
+    if tf:
+        dw = wbar.reshape(heads, c_out, c_in).transpose(1, 2)
+    else:
+        dw = wbar.reshape(heads, c_in, c_out)
+    return rbar, pbar, xbar, dw
+
+
+def banded_aggregate_bwd(r, p, x, w, m, gout, compute_dtype=torch.bfloat16):
+    """(r̄, p̄, x̄, W̄) in f32: the backward kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if gout.is_cuda:
+        return _launch_bwd(r, p, x, w, m, gout, compute_dtype)
+    if gout.device.type == "cpu":
+        return banded_aggregate_bwd_plain(r, p, x, w, m, gout, compute_dtype)
+    raise RuntimeError(f"banded_aggregate_bwd: unsupported device {gout.device}")
+
+
 class _BandedAggregate(torch.autograd.Function):
+    """The aggregate with its custom backward, on either device: the
+    kernels for CUDA tensors, the plain versions for CPU tensors (never
+    autograd through the plain forward's casts, whose backward would round
+    the incoming gradients instead)."""
+
     @staticmethod
     def forward(ctx, r, p, x, w, m, compute_dtype):
-        return _launch(r, p, x, w, m, compute_dtype)
+        ctx.save_for_backward(r, p, x, w, m)
+        ctx.compute_dtype = compute_dtype
+        r, p, x, w = (t.to(torch.float32) for t in (r, p, x, w))
+        if x.is_cuda:
+            return _launch(r, p, x, w, m, compute_dtype)
+        return banded_aggregate_plain(r, p, x, w, m, compute_dtype)
 
     @staticmethod
     def backward(ctx, gout):
-        raise NotImplementedError(
-            "banded aggregate backward (TPU kernels #3/#4, banded_pallas."
-            "_bwd_kernel/_bwd_kernel_tf) is not ported yet: ROADMAP, TPU "
-            "kernels to port, kernels #3/#4"
-        )
+        r, p, x, w, m = ctx.saved_tensors
+        dr, dp, dx, dw = banded_aggregate_bwd(
+            *(t.to(torch.float32) for t in (r, p, x, w)), m,
+            gout.to(torch.float32).contiguous(), ctx.compute_dtype)
+        # cotangents in the primal dtypes (the JAX fix 7e51064)
+        return dr.to(r.dtype), dp.to(p.dtype), dx.to(x.dtype), dw.to(w.dtype), None, None
 
 
 def banded_aggregate(r, p, x, w, m, compute_dtype=torch.bfloat16):
@@ -219,13 +429,11 @@ def banded_aggregate(r, p, x, w, m, compute_dtype=torch.bfloat16):
 
     r, p: (N, H); x: (N, C_in); w: (H, C_in, C_out); m: (B, T, 3T) int8.
     Returns (N, C_out) f32.  Products take compute_dtype operands with f32
-    accumulation; D and the clamp are f32.  CUDA tensors launch the kernel,
-    CPU tensors run the plain version."""
-    if x.is_cuda:
-        return _BandedAggregate.apply(r, p, x, w, m, compute_dtype)
-    if x.device.type == "cpu":
-        return banded_aggregate_plain(r, p, x, w, m, compute_dtype)
-    raise RuntimeError(f"banded_aggregate: unsupported device {x.device}")
+    accumulation; D and the clamp are f32.  CUDA tensors launch the
+    kernels, CPU tensors run the plain versions, forward and backward."""
+    if not (x.is_cuda or x.device.type == "cpu"):
+        raise RuntimeError(f"banded_aggregate: unsupported device {x.device}")
+    return _BandedAggregate.apply(r, p, x, w, m, compute_dtype)
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,16 @@
 """Dense neighbor/member tables: host builders and torch gathers.
 
 Counterpart of geobignn_tpu/ops/table.py.  The host builders are copied
-unchanged (bit-identical tables); the device side is the forward of the
-JAX package's gather primitives.  Their scatter-free custom backwards (the
-`rev` tables) belong to the training slice and are not ported yet: the
-`rev` arguments are accepted so the call sites read like the JAX ones.
+unchanged (bit-identical tables).  On the device the gathers are plain
+indexing, and autograd differentiates them (its backward is a scatter-add).
+The JAX package gives `table_gather` a custom backward that gathers through
+the precomputed `rev` table because XLA's scatter is serial on a TPU, not
+because the gradient differs; the `rev` arguments are accepted so the call
+sites read like the JAX ones, and are unused.  One difference: the JAX
+backward drops the gradient of rows `rev` does not list (the trash slots),
+while autograd gives them one; every such row is a padded row, which the
+convs multiply by the node mask, so no parameter gradient changes
+(tests/test_torch_grads.py holds every parameter gradient against JAX).
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ from geobignn_tpu_torch.structs import round_up
 # --------------------------------------------------------------------------
 
 def table_gather(x: torch.Tensor, nbr: torch.Tensor, rev=None) -> torch.Tensor:
-    """out[..m, k] = x[nbr[..m, k]] (forward of the JAX table_gather)."""
-    del rev  # backward table, used by the training slice
+    """out[..m, k] = x[nbr[..m, k]] (the JAX table_gather; its gradient is
+    autograd's scatter-add, so the reverse table `rev` is unused)."""
+    del rev
     return x[nbr]
 
 
@@ -167,5 +174,5 @@ def gather_pool_mean(x, members, rev, mmask):
 
 
 def gather_unpool(x, unpool, rev):
-    """x[unpool] (forward of the JAX gather_unpool)."""
+    """x[unpool] (the JAX gather_unpool)."""
     return table_gather(x, unpool[:, None], rev)[:, 0]

@@ -1,4 +1,5 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and the refusal of unported modes, shared by the
+port's entry points."""
 
 from __future__ import annotations
 
@@ -16,3 +17,10 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def not_ported(what: str, item: str):
+    """Raise for a mode of the JAX package this port does not have yet,
+    naming its ROADMAP item — such a mode never quietly takes another path."""
+    raise NotImplementedError(
+        f"{what} is not ported to geobignn_tpu_torch yet (ROADMAP: {item})")

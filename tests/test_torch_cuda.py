@@ -1,13 +1,15 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (forward and backward) against their plain
+versions, on the card.
 
 Marked `cuda`: skips without an NVIDIA GPU.  This file imports only torch,
 numpy and the port (the card's machine has no JAX); run it there with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-(--noconftest: tests/conftest.py configures JAX).  Tolerances: bf16 compute
-within 2e-2 of max|out| (a D summed in another order may round an operand to
-the neighbouring bf16 value), float32 within 1e-4 (summation order).
+(--noconftest: tests/conftest.py configures JAX).  Tolerances, relative to
+the largest magnitude of each output or cotangent: bf16 compute within 2e-2
+(a D summed in another order may round an operand to the neighbouring bf16
+value), float32 within 1e-4 (summation order).
 """
 
 from __future__ import annotations
@@ -30,20 +32,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out", [(12, 32), (64, 32)],
-                         ids=["aggregate_first", "transform_first"])
-def test_kernel_matches_plain_on_card(c_in, c_out, cuda_device):
-    mesh = synth.icosphere(4)
+def _problem(c_in, c_out, device, subdiv=4, tile=128, heads=9, seed=1):
+    """An RCM-ordered icosphere vertex graph's band mask and seeded inputs
+    (r, p from the factorized softmax, a gout with zero padded rows)."""
+    mesh = synth.icosphere(subdiv)
     ei = graphs.build_vertex_graph_1ring(mesh.ev_indices, mesh.n_vertices)
-    n, tile, heads = mesh.n_vertices, 128, 9
+    n = mesh.n_vertices
     perm = banded.rcm_order(ei.astype(np.int64), n)
     inv = np.empty(n, np.int64)
     inv[perm] = np.arange(n)
     n_pad = round_up(n + 1, tile)
     m = banded.band_mask_np(inv[ei.astype(np.int64)], n_pad, tile)
 
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     x = np.zeros((n_pad, c_in), np.float32)
     x[:n] = rng.normal(size=(n, c_in))
     w = (rng.normal(size=(heads, c_in, c_out)) * 0.4).astype(np.float32)
@@ -51,8 +52,20 @@ def test_kernel_matches_plain_on_card(c_in, c_out, cuda_device):
         torch.from_numpy(x),
         torch.from_numpy((rng.normal(size=(c_in, heads)) * 0.5).astype(np.float32)),
         torch.from_numpy((rng.normal(size=heads) * 0.3).astype(np.float32)))
-    args = [t.to(cuda_device) for t in (r, p, torch.from_numpy(x),
-                                        torch.from_numpy(w), torch.from_numpy(m))]
+    gout = rng.normal(size=(n_pad, c_out)).astype(np.float32)
+    gout[n:] = 0.0
+    return [t.to(device) for t in (r, p, torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(m), torch.from_numpy(gout))]
+
+
+SCHEDULES = pytest.mark.parametrize("c_in,c_out", [(12, 32), (64, 32)],
+                                    ids=["aggregate_first", "transform_first"])
+
+
+@pytest.mark.cuda
+@SCHEDULES
+def test_kernel_matches_plain_on_card(c_in, c_out, cuda_device):
+    *args, _ = _problem(c_in, c_out, cuda_device)
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         before = sum(banded_cuda.LAUNCHES.values())
         out = banded_cuda.banded_aggregate(*args, compute_dtype=dt)
@@ -60,3 +73,44 @@ def test_kernel_matches_plain_on_card(c_in, c_out, cuda_device):
         assert sum(banded_cuda.LAUNCHES.values()) == before + 1
         ref = banded_cuda.banded_aggregate_plain(*args, compute_dtype=dt)
         assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@SCHEDULES
+def test_backward_kernel_matches_plain_on_card(c_in, c_out, cuda_device):
+    """Each cotangent of TPU kernels #3/#4 on Hopper against the plain
+    backward on the same inputs, relative to that cotangent's max."""
+    args = _problem(c_in, c_out, cuda_device, seed=2)
+    key = ("transform_first_bwd" if c_out < c_in else "aggregate_first_bwd")
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        before = banded_cuda.LAUNCHES[key]
+        got = banded_cuda.banded_aggregate_bwd(*args, compute_dtype=dt)
+        torch.cuda.synchronize()
+        assert banded_cuda.LAUNCHES[key] == before + 1
+        want = banded_cuda.banded_aggregate_bwd_plain(*args, compute_dtype=dt)
+        for name, g, ref in zip(("r", "p", "x", "w"), got, want):
+            err = float((g - ref).abs().max())
+            assert err <= tol * float(ref.abs().max()), (name, dt, err)
+
+
+@pytest.mark.cuda
+@SCHEDULES
+def test_conv_gradients_on_card_match_cpu(c_in, c_out, cuda_device):
+    """Autograd through feast_conv_banded_kernel: the card (kernels) against
+    the CPU (plain versions), float32 compute, 1e-4 of each gradient's max."""
+    r, p, x, w, m, gout = _problem(c_in, c_out, "cpu", subdiv=3, seed=3)
+    rng = np.random.default_rng(4)
+    prm = {"u": torch.from_numpy((rng.normal(size=(c_in, 9)) * 0.5).astype(np.float32)),
+           "c": torch.from_numpy((rng.normal(size=9) * 0.3).astype(np.float32)),
+           "w": w, "b": torch.zeros(c_out)}
+    deg = (m.sum(dim=(2,)).reshape(-1)).to(torch.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = {k: v.detach().to(dev).requires_grad_() for k, v in prm.items()}
+        xd = x.detach().to(dev).requires_grad_()
+        out = banded_cuda.feast_conv_banded_kernel(
+            leaves, xd, m.to(dev), deg.to(dev), compute_dtype=torch.float32)
+        (out * gout.to(dev)).sum().backward()
+        grads[str(dev)] = [t.grad.cpu() for t in (*leaves.values(), xd)]
+    for a, b in zip(grads["cpu"], grads[str(cuda_device)]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())

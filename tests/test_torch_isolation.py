@@ -16,12 +16,15 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 import geobignn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+need = {pkg.__name__ + "." + m for m in (
+    "models.losses", "data.augment", "train.optim", "train.logging",
+    "train.tb_writer", "train.trainer", "ops.banded_cuda")}
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "geobignn_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+print(len(names), bad, sorted(need - set(names)))
+sys.exit(1 if bad or need - set(names) or len(names) < 22 else 0)
 """
 
 
@@ -34,8 +37,12 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
     from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.data.builder import BuildConfig
+    from geobignn_tpu_torch.data.dataset import InMemoryDataset
     from geobignn_tpu_torch.infer.predict import Predictor
     from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.train.trainer import Trainer
     from geobignn_tpu_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -47,3 +54,9 @@ def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     assert Predictor(Config(), state, device="cpu").device.type == "cpu"
+
+    ds = InMemoryDataset([(synth.icosphere(1), synth.icosphere(1))],
+                         BuildConfig(granularity=32, reorder=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(Config(granularity=32), ds)
+    assert Trainer(Config(granularity=32), ds, device="cpu").device.type == "cpu"
