@@ -1,5 +1,6 @@
-// Shared by banded_fwd.cu and banded_bwd.cu: the compute-dtype cast and the
-// per-node window operand of the banded FeaStConv aggregate.
+// Shared by the banded and the block-sparse FeaStConv aggregates (forward
+// and backward): the compute-dtype cast, where a row block's window lies
+// among the node rows, and the per-node window operand.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,6 +19,60 @@ constexpr int kMaxOut = 128;  // 4 column groups of 32
 __device__ __forceinline__ float cd(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
+
+// Where the window of a row block of T rows lies among the node rows.
+//   band (kIndexed = false): the k = 3 neighbouring blocks, window slot w of
+//     block b is node (b-1)T + w; nodes outside [0, N) are absent;
+//   block-sparse (kIndexed = true): the k column blocks listed in
+//     blk_idx[b, :] (int64), slot w is node blk_idx[b, w/T] T + w%T, always
+//     in range.  A padded list entry repeats the row block's own index under
+//     an all-zero mask, so one column block may stand twice in a list.
+// The backward's column pass goes the other way: for column block c, the
+// (row block, list position) pairs whose windows hold it.  The band has the
+// three neighbours; block-sparse reads them from a CSR transpose of blk_idx
+// (colptr (B+1), pairs holding b*k + position, both int64).
+template <bool kIndexed>
+struct WindowMap {
+  const long long* blk_idx;
+  const long long* colptr;
+  const long long* pairs;
+  int tile;
+  int k;
+  int n_blk;
+
+  __device__ __forceinline__ int width() const { return k * tile; }
+
+  // node of window slot w of row block b; w + 31 must not cross a column
+  // block for the caller to step linearly from it (tile % 32 == 0)
+  __device__ __forceinline__ long long node(int b, int w) const {
+    if (kIndexed) {
+      const int pos = w / tile;
+      return blk_idx[(long long)b * k + pos] * tile + (w - pos * tile);
+    }
+    return (long long)(b - 1) * tile + w;
+  }
+
+  __device__ __forceinline__ long long visits_begin(int c) const {
+    return kIndexed ? colptr[c] : c - 1;
+  }
+  __device__ __forceinline__ long long visits_end(int c) const {
+    return kIndexed ? colptr[c + 1] : c + 2;
+  }
+  // visit q of column block c: the row block b (false when the band's
+  // neighbour does not exist) and the list position of c in b's window
+  __device__ __forceinline__ bool visit(long long q, int c, int& b,
+                                        int& pos) const {
+    if (kIndexed) {
+      const long long pr = pairs[q];
+      b = (int)(pr / k);
+      pos = (int)(pr - (long long)b * k);
+      return true;
+    }
+    b = (int)q;
+    pos = c - b + 1;
+    return b >= 0 && b < n_blk;
+  }
+};
 
 // V (N, H*cv) row-major, the window operand, built once per node:
 //   aggregate-first (cv = C_in):  V[j, h*C_in + c]  = cd(p[j,h] x[j,c])

@@ -12,9 +12,11 @@ so params.py moves weights across by renaming keys only.
     the `force_depth` head (out = scalar * depth_direction).
 
 Every conv of the default configuration runs the banded aggregate
-(ops/banded_cuda.py).  The dispatch branches this port does not have yet
-raise NotImplementedError naming the ROADMAP item; they never quietly take
-another path.
+(ops/banded_cuda.py) or, at a level that carries `blk_idx`, the block-sparse
+one (ops/blocksparse.py); levels without a band run the table or COO conv
+(ops/feastconv.py, plain torch).  What this port does not have yet (the
+fusion layer) raises NotImplementedError naming the ROADMAP item; nothing
+quietly takes another path.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from geobignn_tpu_torch import geometry, params as params_mod
-from geobignn_tpu_torch.ops import banded_cuda
+from geobignn_tpu_torch.ops import banded_cuda, blocksparse, feastconv, segment
 from geobignn_tpu_torch.ops import table as tbl
 from geobignn_tpu_torch.structs import BranchGraph, DualSample, GraphLevel
 from geobignn_tpu_torch.utils import not_ported, resolve_device
@@ -62,48 +64,52 @@ class FeaStConv(nn.Module):
         self.b = nn.Parameter(torch.empty(c_out, **kw))
 
     def forward(self, x: torch.Tensor, level: GraphLevel) -> torch.Tensor:
-        if level.band is None:
-            if level.nbr is not None:
-                not_ported("the dense-table FeaStConv (feast_conv_table)",
-                           "modules to port, non-band conv paths")
-            not_ported("the COO FeaStConv (feast_conv)",
-                       "modules to port, non-band conv paths")
-        if level.blk_idx is not None:
-            not_ported("the block-sparse FeaStConv (TPU kernels #5/#6)",
-                       "TPU kernels to port, kernels #5/#6")
-        if level.jnodes is None and level.nbr_b is not None:
-            not_ported("the boundary-table hybrid conv (feast_conv_hybrid)",
-                       "modules to port, non-band conv paths")
         dt = x.dtype
         params = {"u": self.u.to(dt), "c": self.c.to(dt), "w": self.w.to(dt),
                   "b": self.b.to(dt)}
+        mask = level.node_mask.to(dt)[:, None]
+        if level.band is None:
+            if level.nbr is not None:  # dense-table path (Config(reorder=False))
+                out = feastconv.feast_conv_table(
+                    params, x, level.nbr, level.kmask, level.rev, deg=level.deg.to(dt))
+            else:
+                out = feastconv.feast_conv(params, x, level.edge_index,
+                                           deg=level.deg.to(dt))
+            return out * mask
         n1 = x.shape[0]
         n_band = level.band.shape[0] * level.band.shape[1]
         xp = F.pad(x, (0, 0, 0, n_band - n1))
         dp = F.pad(level.deg.to(torch.float32), (0, n_band - n1))
-        if level.jnodes is not None:
+        if level.blk_idx is not None:
+            out = blocksparse.feast_conv_blocksparse(
+                params, xp, level.band, level.blk_idx, dp)
+        elif level.jnodes is not None:
             out = banded_cuda.feast_conv_hybrid_band(
                 params, xp, level.band, level.jnodes, level.jband, level.jpos, dp)
+        elif level.nbr_b is not None:
+            out = banded_cuda.feast_conv_hybrid(
+                params, xp, level.band, level.rows_b, level.nbr_b, level.kmask_b,
+                level.src_b, level.rev_b, dp)
         else:
             out = banded_cuda.feast_conv_banded_kernel(params, xp, level.band, dp)
-        out = out[:n1].to(dt)
         # restore the zero-trash invariant (bias/self terms make padded rows
         # nonzero; the trash row would otherwise grow every conv)
-        return out * level.node_mask.to(out.dtype)[:, None]
+        return out[:n1].to(dt) * mask
 
 
 def pool_features(x: torch.Tensor, steps, pool_type: str = "max") -> torch.Tensor:
-    """Apply coarsening rounds as gathers over the member tables."""
+    """Apply coarsening rounds as gathers over the member tables, or, when
+    a step carries none, as segment reductions over its cluster map."""
+    if pool_type not in ("max", "mean"):
+        raise ValueError(pool_type)
     for st in steps:
-        if st.members is None:
-            not_ported("segment pooling without member tables",
-                       "modules to port, non-band conv paths")
-        if pool_type == "max":
-            x = tbl.gather_pool_max(x, st.members, st.rev, st.mmask)
-        elif pool_type == "mean":
-            x = tbl.gather_pool_mean(x, st.members, st.rev, st.mmask)
+        if st.members is not None:
+            pool = tbl.gather_pool_max if pool_type == "max" else tbl.gather_pool_mean
+            x = pool(x, st.members, st.rev, st.mmask)
+        elif pool_type == "max":
+            x = segment.segment_max(x, st.cluster, st.n_out)
         else:
-            raise ValueError(pool_type)
+            x = segment.segment_mean(x, st.cluster, st.n_out)
     return x
 
 

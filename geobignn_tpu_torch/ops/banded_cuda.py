@@ -11,12 +11,20 @@ Counterpart of geobignn_tpu/ops/banded_pallas.py.  It holds
     casts at the same points; with compute_dtype=torch.float32 they are
     exact float32 math;
   * `feast_conv_banded_kernel` (the counterpart of
-    `feast_conv_banded_pallas`) and `feast_conv_hybrid_band`.
+    `feast_conv_banded_pallas`), `feast_conv_hybrid_band` and
+    `feast_conv_hybrid`.
 
-Each kernel source is built with nvcc for sm_90a into its own library under
-build/geobignn_tpu_torch/ at first use (one nvcc per source, started
-together), from the repo's sources only, and loaded through ctypes.  Each
-schedule counts its forward and backward launches in `LAUNCHES`.
+Each kernel source — the banded ones and the block-sparse ones that
+ops/blocksparse.py wraps — is built with nvcc for sm_90a into its own
+library under build/geobignn_tpu_torch/ at first use (one nvcc per source,
+started together), from the repo's sources only, and loaded through ctypes.
+Each schedule counts its forward and backward launches in `LAUNCHES`, the
+block-sparse ones under `bs_` names.
+
+The plain versions take the window as a pair of functions (`_BandWindow`
+here, ops/blocksparse.py's over `blk_idx`): the gather of node rows into
+per-block windows and the fold of window cotangents back; the math is
+written once for both.
 """
 
 from __future__ import annotations
@@ -29,21 +37,29 @@ import time
 
 import torch
 
+from geobignn_tpu_torch.ops import table as tbl
 from geobignn_tpu_torch.ops.banded import self_loop_epilogue, window, factorized_softmax
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 SOURCES = {"fwd": os.path.join(_CSRC, "banded_fwd.cu"),
-           "bwd": os.path.join(_CSRC, "banded_bwd.cu")}
-HEADERS = (os.path.join(_CSRC, "banded_common.cuh"),)
+           "bwd": os.path.join(_CSRC, "banded_bwd.cu"),
+           "bs_fwd": os.path.join(_CSRC, "blocksparse_fwd.cu"),
+           "bs_bwd": os.path.join(_CSRC, "blocksparse_bwd.cu")}
+HEADERS = tuple(os.path.join(_CSRC, h) for h in (
+    "banded_common.cuh", "window_fwd.cuh", "window_bwd.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "geobignn_tpu_torch")
-LIBRARIES = {k: os.path.join(BUILD_DIR, f"libbanded_{k}.so") for k in SOURCES}
+LIBRARIES = {k: os.path.join(
+    BUILD_DIR, "lib" + os.path.splitext(os.path.basename(src))[0] + ".so")
+    for k, src in SOURCES.items()}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches per schedule and direction, counted where the wrappers launch
 LAUNCHES = {"aggregate_first": 0, "transform_first": 0,
-            "aggregate_first_bwd": 0, "transform_first_bwd": 0}
+            "aggregate_first_bwd": 0, "transform_first_bwd": 0,
+            "bs_aggregate_first": 0, "bs_transform_first": 0,
+            "bs_aggregate_first_bwd": 0, "bs_transform_first_bwd": 0}
 
 _libs: dict = {}
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (registers, smem)
@@ -57,7 +73,7 @@ def reset_launches() -> None:
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the banded CUDA kernels cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return found
 
 
@@ -71,7 +87,7 @@ def _stale(key: str) -> bool:
 
 def build(force: bool = False) -> float:
     """Compile every kernel library older than its source or the shared
-    header, one nvcc per source, all started together.  Returns the seconds
+    headers, one nvcc per source, all started together.  Returns the seconds
     the builds took (0.0 when nothing was built)."""
     global BUILD_LOG
     todo = [k for k in SOURCES if force or _stale(k)]
@@ -109,14 +125,21 @@ def _load():
         bwd = ctypes.CDLL(LIBRARIES["bwd"])
         bwd.gbn_banded_aggregate_bwd.argtypes = [vp] * 15 + [ci] * 7 + [vp]
         bwd.gbn_banded_aggregate_bwd.restype = ci
-        for lib, names in ((fwd, ("gbn_banded_rows_per_cta", "gbn_banded_max_heads",
-                                  "gbn_banded_max_out")),
-                           (bwd, ("gbn_banded_bwd_nodes_per_cta",
-                                  "gbn_banded_bwd_max_heads",
-                                  "gbn_banded_bwd_max_width"))):
+        bs_fwd = ctypes.CDLL(LIBRARIES["bs_fwd"])
+        bs_fwd.gbn_bs_aggregate_fwd.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        bs_fwd.gbn_bs_aggregate_fwd.restype = ci
+        bs_bwd = ctypes.CDLL(LIBRARIES["bs_bwd"])
+        bs_bwd.gbn_bs_aggregate_bwd.argtypes = [vp] * 18 + [ci] * 8 + [vp]
+        bs_bwd.gbn_bs_aggregate_bwd.restype = ci
+        limits = ("rows_per_cta", "max_heads", "max_out")
+        limits_bwd = ("bwd_nodes_per_cta", "bwd_max_heads", "bwd_max_width")
+        for lib, prefix, names in ((fwd, "gbn_banded_", limits),
+                                   (bwd, "gbn_banded_", limits_bwd),
+                                   (bs_fwd, "gbn_bs_", limits),
+                                   (bs_bwd, "gbn_bs_", limits_bwd)):
             for name in names:
-                getattr(lib, name).restype = ci
-        _libs.update(fwd=fwd, bwd=bwd)
+                getattr(lib, prefix + name).restype = ci
+        _libs.update(fwd=fwd, bwd=bwd, bs_fwd=bs_fwd, bs_bwd=bs_bwd)
     return _libs
 
 
@@ -136,61 +159,78 @@ def _cast(t: torch.Tensor, compute_dtype) -> torch.Tensor:
     return t.to(compute_dtype).to(torch.float32)
 
 
-def _block_d(r, p, m):
-    """Per block: r (B, T, H), the p window (B, 3T, H) and D = r pᵀ (B, T, 3T)."""
+class _BandWindow:
+    """The contiguous band's window of mask m (B, T, 3T): block b sees the
+    3T nodes from (b-1)T, zero rows outside [0, N)."""
+
+    def __init__(self, m):
+        self.tile = m.shape[1]
+
+    def gather(self, t):
+        """(N, C) node rows -> (B, W, C) per-block windows."""
+        return window(t, self.tile)
+
+    def fold(self, slabs):
+        """(B, W, C) per-block window cotangents -> (N, C) node rows."""
+        return _fold_windows(slabs, self.tile)
+
+
+def _block_d(r, p, m, win):
+    """Per block: r (B, T, H), the p window (B, W, H) and D = r pᵀ (B, T, W)."""
     n_blk, tile, _ = m.shape
     r_blk = r.reshape(n_blk, tile, r.shape[1])
-    p_win = window(p, tile)
+    p_win = win.gather(p)
     return r_blk, p_win, torch.einsum("bth,bwh->btw", r_blk, p_win)
 
 
-def _block_weights(r, p, m, compute_dtype):
-    """A = cd(M / max(rᵀp, 1e-12)) per block: (B, T, 3T), and r per block."""
-    r_blk, _, d = _block_d(r, p, m)
+def _block_weights(r, p, m, compute_dtype, win):
+    """A = cd(M / max(rᵀp, 1e-12)) per block: (B, T, W), and r per block."""
+    r_blk, _, d = _block_d(r, p, m, win)
     return _cast(m.to(torch.float32) / torch.clamp(d, min=1e-12), compute_dtype), r_blk
 
 
-def aggregate_first_plain(r, p, x, w, m, compute_dtype=torch.bfloat16):
+def aggregate_first_plain(r, p, x, w, m, compute_dtype=torch.bfloat16, win=None):
     """Plain version of TPU kernel #1 (`_fwd_kernel`): the casts of
-    banded_pallas.py:226-238 — minv, xpwT, zrT and w in compute_dtype."""
-    n_blk, tile, _ = m.shape
+    banded_pallas.py:226-238 — minv, xpwT, zrT and w in compute_dtype.
+    `win` is the window of the mask (the band's by default)."""
+    win = win or _BandWindow(m)
     n, c_in = x.shape
     heads, _, c_out = w.shape
-    minv, r_blk = _block_weights(r, p, m, compute_dtype)
+    minv, r_blk = _block_weights(r, p, m, compute_dtype, win)
     xpw = _cast((p[:, :, None] * x[:, None, :]).reshape(n, heads * c_in), compute_dtype)
-    z = torch.matmul(minv, window(xpw, tile))  # (B, T, H*C_in)
+    z = torch.matmul(minv, win.gather(xpw))  # (B, T, H*C_in)
     zr = _cast(z * r_blk.repeat_interleave(c_in, dim=2), compute_dtype)
     out = zr @ _cast(w.reshape(heads * c_in, c_out), compute_dtype)
     return out.reshape(n, c_out)
 
 
-def transform_first_plain(r, p, x, w, m, compute_dtype=torch.bfloat16):
+def transform_first_plain(r, p, x, w, m, compute_dtype=torch.bfloat16, win=None):
     """Plain version of TPU kernel #2 (`_fwd_body_tf`): the casts of
     banded_pallas.py:120-138 — minv, w2, x, ypwT and zrT in compute_dtype,
     then the head sum."""
-    n_blk, tile, _ = m.shape
+    win = win or _BandWindow(m)
     n, c_in = x.shape
     heads, _, c_out = w.shape
-    minv, r_blk = _block_weights(r, p, m, compute_dtype)
+    minv, r_blk = _block_weights(r, p, m, compute_dtype, win)
     w2 = _cast(w.permute(1, 0, 2).reshape(c_in, heads * c_out), compute_dtype)
     y = _cast(x, compute_dtype) @ w2  # (N, H*C_out), column h*C_out + o
     ypw = _cast(y * p.repeat_interleave(c_out, dim=1), compute_dtype)
-    z = torch.matmul(minv, window(ypw, tile))  # (B, T, H*C_out)
+    z = torch.matmul(minv, win.gather(ypw))  # (B, T, H*C_out)
     zr = _cast(z * r_blk.repeat_interleave(c_out, dim=2), compute_dtype)
     return zr.reshape(n, heads, c_out).sum(dim=1)
 
 
-def banded_aggregate_plain(r, p, x, w, m, compute_dtype=torch.bfloat16):
+def banded_aggregate_plain(r, p, x, w, m, compute_dtype=torch.bfloat16, win=None):
     c_in, c_out = w.shape[1], w.shape[2]
     if use_transform_first(c_in, c_out):
-        return transform_first_plain(r, p, x, w, m, compute_dtype)
-    return aggregate_first_plain(r, p, x, w, m, compute_dtype)
+        return transform_first_plain(r, p, x, w, m, compute_dtype, win)
+    return aggregate_first_plain(r, p, x, w, m, compute_dtype, win)
 
 
-def _bwd_weights(r, p, m, compute_dtype):
-    """Per block: r (B, T, H), the p window (B, 3T, H), cd(M/D) and the clamp
-    subgradient mdd = where(D > 1e-12, -(M/D)/D, 0), both (B, T, 3T)."""
-    r_blk, p_win, d = _block_d(r, p, m)
+def _bwd_weights(r, p, m, compute_dtype, win):
+    """Per block: r (B, T, H), the p window (B, W, H), cd(M/D) and the clamp
+    subgradient mdd = where(D > 1e-12, -(M/D)/D, 0), both (B, T, W)."""
+    r_blk, p_win, d = _block_d(r, p, m, win)
     dinv = 1.0 / torch.clamp(d, min=1e-12)
     minv = m.to(torch.float32) * dinv
     mdd = torch.where(d > 1e-12, -minv * dinv, torch.zeros_like(d))
@@ -213,15 +253,17 @@ def _head_sum(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], heads, -1).sum(dim=-1)
 
 
-def aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16):
+def aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16,
+                              win=None):
     """Plain version of TPU kernel #3 (`_bwd_kernel`, banded_pallas.py:
     241-321): minv, xpw, gout, w, zr, gz and ybar in compute_dtype; a, K,
     dbar and the r̄/p̄ denominator parts in f32.  Returns (r̄, p̄, x̄, W̄), f32."""
+    win = win or _BandWindow(m)
     n_blk, tile, _ = m.shape
     n, c_in = x.shape
     heads, _, c_out = w.shape
-    r_blk, p_win, minv_c, mdd = _bwd_weights(r, p, m, compute_dtype)
-    x_win = window(x, tile)
+    r_blk, p_win, minv_c, mdd = _bwd_weights(r, p, m, compute_dtype, win)
+    x_win = win.gather(x)
     xpw = _cast((p_win[..., :, None] * x_win[..., None, :]).flatten(2), compute_dtype)
     rw = r_blk.repeat_interleave(c_in, dim=2)  # (B, T, H*C_in)
     gt_c = _cast(gout.to(torch.float32).reshape(n_blk, tile, c_out), compute_dtype)
@@ -233,62 +275,67 @@ def aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16)
     wbar = zr.transpose(1, 2) @ gt_c  # per-block W̄ slabs
     rbar_direct = _head_sum(_cast(gy * z, compute_dtype), heads)
     ybar = _cast(gy * rw, compute_dtype)
-    a = minv_c.transpose(1, 2) @ ybar  # (B, 3T, H*C_in)
-    a4 = a.reshape(n_blk, 3 * tile, heads, c_in)
+    a = minv_c.transpose(1, 2) @ ybar  # (B, W, H*C_in)
+    a4 = a.reshape(n_blk, -1, heads, c_in)
     xbar_win = (p_win[..., None] * a4).sum(dim=2)
     pbar_direct = (a4 * x_win[:, :, None, :]).sum(dim=3)
     dbar = mdd * (ybar @ xpw.transpose(1, 2))  # the denominator path
     rbar = rbar_direct + dbar @ p_win
     pbar_win = pbar_direct + dbar.transpose(1, 2) @ r_blk
-    return (rbar.reshape(n, heads), _fold_windows(pbar_win, tile),
-            _fold_windows(xbar_win, tile), wbar.sum(dim=0).reshape(heads, c_in, c_out))
+    return (rbar.reshape(n, heads), win.fold(pbar_win), win.fold(xbar_win),
+            wbar.sum(dim=0).reshape(heads, c_in, c_out))
 
 
-def transform_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16):
+def transform_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16,
+                              win=None):
     """Plain version of TPU kernel #4 (`_bwd_body_tf`, banded_pallas.py:
     159-217): minv, x, w2, ypw, gz*z, zbar, y*ybarpw and ybar in
     compute_dtype (gout itself is not cast); K, dbar and the r̄/p̄
     denominator parts in f32.  Returns (r̄, p̄, x̄, W̄), f32."""
+    win = win or _BandWindow(m)
     n_blk, tile, _ = m.shape
     n, c_in = x.shape
     heads, _, c_out = w.shape
-    r_blk, p_win, minv_c, mdd = _bwd_weights(r, p, m, compute_dtype)
-    xw_c = _cast(window(x, tile), compute_dtype)
+    r_blk, p_win, minv_c, mdd = _bwd_weights(r, p, m, compute_dtype, win)
+    xw_c = _cast(win.gather(x), compute_dtype)
     w2 = _cast(w.permute(0, 2, 1).reshape(heads * c_out, c_in), compute_dtype)
-    pw = p_win.repeat_interleave(c_out, dim=2)  # (B, 3T, H*C_out)
+    pw = p_win.repeat_interleave(c_out, dim=2)  # (B, W, H*C_out)
     rw = r_blk.repeat_interleave(c_out, dim=2)  # (B, T, H*C_out)
     gz = gout.to(torch.float32).reshape(n_blk, tile, c_out).repeat(1, 1, heads)
 
-    y = xw_c @ w2.T  # (B, 3T, H*C_out), the forward recompute
+    y = xw_c @ w2.T  # (B, W, H*C_out), the forward recompute
     ypw = _cast(pw * y, compute_dtype)
     z = minv_c @ ypw
     rbar_direct = _head_sum(_cast(gz * z, compute_dtype), heads)
     zbar = _cast(gz * rw, compute_dtype)
-    ybarpw = minv_c.transpose(1, 2) @ zbar  # (B, 3T, H*C_out)
+    ybarpw = minv_c.transpose(1, 2) @ zbar  # (B, W, H*C_out)
     dbar = mdd * (zbar @ ypw.transpose(1, 2))  # the denominator path
     rbar = rbar_direct + dbar @ p_win
     pbar_win = (_head_sum(_cast(y * ybarpw, compute_dtype), heads)
                 + dbar.transpose(1, 2) @ r_blk)
     ybar = _cast(pw * ybarpw, compute_dtype)
-    xbar_win = ybar @ w2  # (B, 3T, C_in)
+    xbar_win = ybar @ w2  # (B, W, C_in)
     wbar = ybar.transpose(1, 2) @ xw_c  # per-block W̄2 slabs (H*C_out, C_in)
     dw = wbar.sum(dim=0).reshape(heads, c_out, c_in).transpose(1, 2)
-    return (rbar.reshape(n, heads), _fold_windows(pbar_win, tile),
-            _fold_windows(xbar_win, tile), dw)
+    return rbar.reshape(n, heads), win.fold(pbar_win), win.fold(xbar_win), dw
 
 
-def banded_aggregate_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16):
+def banded_aggregate_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16,
+                               win=None):
     c_in, c_out = w.shape[1], w.shape[2]
     if use_transform_first(c_in, c_out):
-        return transform_first_bwd_plain(r, p, x, w, m, gout, compute_dtype)
-    return aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype)
+        return transform_first_bwd_plain(r, p, x, w, m, gout, compute_dtype, win)
+    return aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype, win)
 
 
 # --------------------------------------------------------------------------
 # the kernels
 # --------------------------------------------------------------------------
 
-def _check(r, p, x, w, m, compute_dtype, gout=None):
+def _check(r, p, x, w, m, compute_dtype, gout=None, blk_idx=None):
+    """What a kernel is never launched without: devices, dtypes, contiguity
+    and shapes.  With blk_idx the mask is block-sparse, (B, T, K*T) beside a
+    (B, K) int64 list; without, the band's (B, T, 3T)."""
     n_blk, tile, win = m.shape
     n, c_in = x.shape
     heads = r.shape[1]
@@ -297,6 +344,8 @@ def _check(r, p, x, w, m, compute_dtype, gout=None):
              ("x", x, torch.float32), ("w", w, torch.float32), ("m", m, torch.int8)]
     if gout is not None:
         named.append(("gout", gout, torch.float32))
+    if blk_idx is not None:
+        named.append(("blk_idx", blk_idx, torch.int64))
     for name, t, dt in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
@@ -306,8 +355,11 @@ def _check(r, p, x, w, m, compute_dtype, gout=None):
             raise ValueError(f"{name} must be contiguous")
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"compute_dtype must be bfloat16 or float32, got {compute_dtype}")
-    if win != 3 * tile or n != n_blk * tile:
+    if (blk_idx is None and win != 3 * tile) or n != n_blk * tile:
         raise ValueError(f"mask {tuple(m.shape)} does not band x {tuple(x.shape)}")
+    if blk_idx is not None and (win % tile or blk_idx.shape != (n_blk, win // tile)):
+        raise ValueError(f"blk_idx {tuple(blk_idx.shape)} does not list the "
+                         f"column blocks of mask {tuple(m.shape)}")
     if r.shape != (n, heads) or p.shape != (n, heads) or w.shape[:2] != (heads, c_in):
         raise ValueError(f"shapes r {tuple(r.shape)} p {tuple(p.shape)} "
                          f"w {tuple(w.shape)} x {tuple(x.shape)} disagree")
@@ -475,4 +527,24 @@ def feast_conv_hybrid_band(params: dict, x, m, jnodes, jband, jpos, deg, *,
     p_s, r_s = factorized_softmax(x_s, params["u"], params["c"])
     corr = banded_aggregate(r_s, p_s, x_s, params["w"], jband, compute_dtype)
     num = _scatter_add_unique(num, corr, jpos)
+    return self_loop_epilogue(num, x, params, deg)
+
+
+def feast_conv_hybrid(params: dict, x, m, rows_b, nbr_b, kmask_b, src_b, rev_b, deg, *,
+                      compute_dtype=torch.bfloat16):
+    """Band + boundary-table hybrid FeaStConv (the fallback when the boundary
+    sub-graph's own bandwidth is too large for a sub-band): in-window edges
+    run the banded aggregate; the out-of-window boundary runs a compact
+    per-edge softmax correction over `rows_b` only, in the input's dtype.
+    Trash-padded rows_b carry kmask 0, so their duplicate adds are zero."""
+    p, r = factorized_softmax(x, params["u"], params["c"])
+    num = banded_aggregate(r, p, x, params["w"], m, compute_dtype)
+
+    x_i = x[rows_b]  # (M_b, C)
+    xnb = tbl.table_gather_compact(x, nbr_b, src_b, rev_b)  # (M_b, K_b, C)
+    s = torch.einsum("mkc,ch->mkh", xnb - x_i[:, None, :], params["u"]) + params["c"]
+    q = torch.softmax(s, dim=-1) * kmask_b[..., None]
+    z = torch.einsum("mkh,mkc->mhc", q, xnb)
+    corr = torch.einsum("mhc,hco->mo", z, params["w"])
+    num = num.index_add(0, rows_b, corr.to(num.dtype))
     return self_loop_epilogue(num, x, params, deg)

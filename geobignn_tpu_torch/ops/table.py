@@ -32,6 +32,15 @@ def table_gather(x: torch.Tensor, nbr: torch.Tensor, rev=None) -> torch.Tensor:
     return x[nbr]
 
 
+def table_gather_compact(x: torch.Tensor, nbr: torch.Tensor, src_b=None,
+                         rev_c=None) -> torch.Tensor:
+    """x[nbr] for boundary-style tables (the JAX table_gather_compact, whose
+    backward runs over the compact source list `src_b` / `rev_c`; autograd's
+    scatter-add needs neither)."""
+    del src_b, rev_c
+    return x[nbr]
+
+
 # --------------------------------------------------------------------------
 # host-side builders (vectorized numpy)
 # --------------------------------------------------------------------------

@@ -80,7 +80,7 @@ class Trainer:
                        "modules to port, item 6, halo and multi-chip paths")
         if cfg.precision == "bfloat16":
             not_ported("precision='bfloat16'",
-                       "modules to port, item 5, large-mesh block-sparse path and bf16 precision")
+                       "modules to port, item 5, the precision='bfloat16' mode")
         if cfg.buckets_growth > 1.0:
             not_ported("size bucketing (buckets_growth > 1)",
                        "modules to port, item 8, the rest of the package: bucketing")

@@ -18,13 +18,14 @@ import geobignn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 need = {pkg.__name__ + "." + m for m in (
     "models.losses", "data.augment", "train.optim", "train.logging",
-    "train.tb_writer", "train.trainer", "ops.banded_cuda")}
+    "train.tb_writer", "train.trainer", "ops.banded_cuda", "ops.blocksparse",
+    "ops.segment", "ops.feastconv")}
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "geobignn_tpu"))
 print(len(names), bad, sorted(need - set(names)))
-sys.exit(1 if bad or need - set(names) or len(names) < 22 else 0)
+sys.exit(1 if bad or need - set(names) or len(names) < 24 else 0)
 """
 
 
@@ -60,3 +61,16 @@ def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(Config(granularity=32), ds)
     assert Trainer(Config(granularity=32), ds, device="cpu").device.type == "cpu"
+
+
+def test_no_level_structure_raises_not_ported():
+    """FeaStConv dispatches every level structure the host builders make;
+    what is still missing (the fusion layer) names its ROADMAP item."""
+    import inspect
+
+    from geobignn_tpu_torch.models import dual_gnn
+
+    assert "not_ported" not in inspect.getsource(dual_gnn.FeaStConv)
+    assert "not_ported" not in inspect.getsource(dual_gnn.pool_features)
+    with pytest.raises(NotImplementedError, match="fusion"):
+        dual_gnn.DualGNN(fusion=8, device="cpu")
