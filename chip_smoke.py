@@ -48,7 +48,34 @@ non-zero without the final result line:
      s/step and edges/s; and each backward kernel against its plain backward on the
      inputs the path gave it (with a seeded gout), timed, with its bound
      (the banded ones from seeds (0, 6), the block-sparse ones from (1, 2));
-  8. one JSON line of the eight kernels, then the result line.
+  8. the run-directory path, through the entry points a user calls, at the
+     default model's full width (Config() defaults, sub_size 20000), in a
+     temp directory: a reference-layout corpus (Synthetic/{train,test}/
+     {noisy,original} + train_list.txt / test_list.txt) of icosphere(5)
+     meshes (train: noise seeds 1 and 2, test: seed 3);
+     train(Config(max_epoch=2)) writes the run directory (params.json,
+     ckpt_best.pkl, ckpt_last.pkl, metrics.jsonl, training_info.txt and the
+     code snapshot with csrc/ and the native sources) and puts stdout back;
+     Predictor.from_run loads it version-pinned — the snapshot builds its
+     own kernels — with the checkpoint's weights bit for bit, and its
+     prediction of the test mesh equals the live package's exactly;
+     predict_dir writes `{name}-60.obj` (forward launches counted as in the
+     serving phases; the launches of train() are 8 training steps plus two
+     evaluation passes of the same mesh); eval_denoising_result scores it —
+     the nearest-distance kernel once per result mesh — against the same
+     call with device="cpu" (angle and normal_mse equal to 1e-6, the vertex
+     distance within 1e-5 of the mean edge length), and writes
+     ErrorInfo_h.txt; then resume: Trainer.restore(ckpt_last.pkl) and one
+     more epoch against a fresh 3-epoch fit (same epoch loss to 1e-6
+     relative: no kernel uses atomics, autograd's index backward may), whose
+     best weights Predictor.from_run returns bit for bit;
+  9. the nearest-distance kernel against its plain version (squared
+     distances within 1e-5 * max(|a|^2 + |b|^2), also against a float64
+     brute force where its matrix fits) at 10,242 x 10,242 x 3 (the path's
+     own inputs), 40,000^2 x 3, 500,000^2 x 3 and 8,192^2 x 64, timed with
+     CUDA events, with its bound (float32 operations at 67 TFLOP/s) and the
+     time of torch.cdist(a, b).min(dim=1), which materialises the matrix;
+ 10. one JSON line of the nine kernels, then the result line.
 
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
 max|out| (both round the same operands to bf16, but a D summed in another
@@ -69,6 +96,10 @@ head amplifies the order of float32 sums (the plain versions alone, on the
 card against the CPU, differ by 2e-3 of max|g| in `fc_v1.kernel`), so the
 block-sparse kernels are also held in place, float32 compute, against their
 own plain versions on the card: every parameter gradient within 1e-4.
+The nearest-distance kernel's error is that of the expansion
+|a|^2 - 2 a.b + |b|^2, a few float32 ulps of the terms that cancel: squared
+distances within 1e-5 * max(|a|^2 + |b|^2); the root magnifies it for the
+closest pairs, so the error of the distances is printed beside it.
 """
 
 from __future__ import annotations
@@ -76,17 +107,21 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, SXM at 700 W
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, SXM at 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3
+NEAREST_TOL = 1e-5  # of max(|a|^2 + |b|^2), on squared distances
 BF16_TOL, F32_TOL = 2e-2, 1e-4
 POS_TOL_MEL, NORMAL_TOL = 2e-2, 5e-2
 FWD = ("aggregate_first", "transform_first")
-KERNELS = tuple(pre + k + suf for suf in ("", "_bwd") for pre in ("", "bs_") for k in FWD)
+AGGREGATES = tuple(pre + k + suf for suf in ("", "_bwd") for pre in ("", "bs_") for k in FWD)
+KERNELS = AGGREGATES + ("nearest",)
 
 
 def _counts(**launched):
@@ -430,7 +465,7 @@ def serve_phase(pred, seed, tag):
               f"(random weights)")
     assert {k: sum(e["calls"] for kk, e in captured.items() if kk[0] == k)
             for k in FWD + tuple("bs_" + k for k in FWD)} \
-        == {k: v for k, v in SERVE_LAUNCHES[seed].items() if not k.endswith("_bwd")}
+        == _fwd_only(SERVE_LAUNCHES[seed])
     return mesh, captured, launches, wall
 
 
@@ -579,6 +614,262 @@ def train_phase(torch, np, seeds, overfit):
             for k in KERNELS if k.endswith("_bwd")} \
         == {k: v for k, v in step_launches.items() if k.endswith("_bwd")}
     return {"captured": captured, "launches": launches, "step_ms": step_ms}
+
+
+def _fwd_only(counts):
+    return {k: v for k, v in counts.items() if k in FWD or k[3:] in FWD}
+
+
+def rundir_phase(torch, np):
+    """Phase 8: train(cfg) -> Predictor.from_run / predict_dir ->
+    eval_denoising_result -> resume, in a temp directory.  Returns the
+    launches of the `nearest` kernel on the path and the result mesh's and
+    the original's points (the kernel's inputs on this path)."""
+    from geobignn_tpu_torch import geometry, meshio
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.data.dataset import DualDataset
+    from geobignn_tpu_torch.infer import predict
+    from geobignn_tpu_torch.infer.evaluate import eval_denoising_result
+    from geobignn_tpu_torch.ops import banded_cuda
+    from geobignn_tpu_torch.train import checkpoint as ckpt
+    from geobignn_tpu_torch.train.trainer import Trainer, train
+
+    tag = "rundir"
+    train_seeds, test_seed = (1, 2), 3
+    step = TRAIN_SETS[train_seeds]
+    tmp = tempfile.mkdtemp(prefix="gbn_smoke_")
+    try:
+        # a reference-layout corpus
+        root = os.path.join(tmp, "dataset")
+        clean = synth.icosphere(5)
+        for split, seeds in (("train", train_seeds), ("test", (test_seed,))):
+            for sub in ("noisy", "original"):
+                os.makedirs(os.path.join(root, "Synthetic", split, sub))
+            meshio.write_obj(os.path.join(root, "Synthetic", split, "original", "ball.obj"),
+                             clean.points, clean.fv_indices)
+            for sd in seeds:
+                noisy = synth.add_noise(clean, 0.2, seed=sd)
+                meshio.write_obj(
+                    os.path.join(root, "Synthetic", split, "noisy", f"ball_n{sd}.obj"),
+                    noisy.points, noisy.fv_indices)
+            with open(os.path.join(root, "Synthetic", f"{split}_list.txt"), "w") as f:
+                f.write("ball\n")
+        test_dir = os.path.join(root, "Synthetic", "test")
+        cfg = Config(seed=0, max_epoch=2, flag="smoke", dataset_dir=root,
+                     log_dir=os.path.join(tmp, "log"))
+
+        # 8.1 train(cfg): the run directory
+        stdout = sys.stdout
+        banded_cuda.reset_launches()
+        t0 = time.perf_counter()
+        run_dir = train(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = dict(banded_cuda.LAUNCHES)
+        assert sys.stdout is stdout, "train() left its tee on sys.stdout"
+        for name in ("params.json", "ckpt_best.pkl", "ckpt_last.pkl", "metrics.jsonl",
+                     "training_info.txt", "code_bak/geobignn_tpu_torch/csrc/nearest.cu",
+                     "code_bak/geobignn_tpu_torch/csrc/window_fwd.cuh",
+                     "code_bak/native/meshkernel.cpp"):
+            assert os.path.exists(os.path.join(run_dir, name)), name
+        recs = [json.loads(ln) for ln in open(os.path.join(run_dir, "metrics.jsonl"))]
+        epochs = [r for r in recs if r["split"] == "train"]
+        assert [r["epoch"] for r in epochs] == [0, 1]
+        assert [r["epoch"] for r in recs if r["split"] == "test"] == [0, 1]
+        for r in epochs:
+            print(f"[{tag}] train() epoch {r['epoch']}: loss {r['loss']:.5f} error_f "
+                  f"{r['error_f']:.4f} deg; {1.0 / r['samples_per_s']:.4f} s/step; "
+                  f"edges/s {r['edges_per_s']:.4e}")
+            assert np.isfinite([r["loss"], r["error_f"], r["edges_per_s"]]).all()
+        print(f"[{tag}] train(Config(seed=0, max_epoch=2)) on 2 meshes (4 patches) + 1 "
+              f"test mesh (2 patches): {train_s:.3f} s wall with the host builds and "
+              f"the snapshot; launches {train_launches}")
+        n_steps = 2 * 4
+        assert {k: v for k, v in train_launches.items() if k.endswith("_bwd")} \
+            == {k: n_steps * v for k, v in step.items() if k.endswith("_bwd")}, train_launches
+        assert train_launches["nearest"] == 0
+
+        # 8.2 Predictor.from_run: version-pinned, the checkpoint's weights
+        best, _, scalars = ckpt.load_checkpoint(os.path.join(run_dir, "ckpt_best.pkl"))
+        mesh_t = meshio.read_obj(os.path.join(test_dir, "noisy", f"ball_n{test_seed}.obj"))
+        t0 = time.perf_counter()
+        pinned = predict.Predictor.from_run(run_dir)
+        try:
+            snap_file = sys.modules[type(pinned).__module__].__file__
+            assert snap_file.startswith(os.path.join(run_dir, "code_bak")), snap_file
+            v_pin, n_pin = pinned.denoise(mesh_t)
+            torch.cuda.synchronize()
+            snap_cuda = sys.modules["geobignn_tpu_torch.ops.banded_cuda"]
+            assert snap_cuda.BUILD_DIR.startswith(os.path.join(run_dir, "code_bak"))
+            assert all(os.path.exists(lib) for lib in snap_cuda.LIBRARIES.values())
+        finally:
+            predict.unpin_live_package()
+        pin_s = time.perf_counter() - t0
+        live = predict.Predictor.from_run(run_dir, pinned=False)
+        assert type(live) is predict.Predictor and type(pinned) is not predict.Predictor
+        for name, t in best.items():
+            for sd in (pinned.model.state_dict(), live.model.state_dict()):
+                assert torch.equal(sd[name].cpu(), t), name
+        v_live, n_live = live.denoise(mesh_t)
+        same = np.array_equal(v_pin, v_live) and np.array_equal(n_pin, n_live)
+        print(f"[{tag}] Predictor.from_run: pinned to the run's snapshot (its own nvcc "
+              f"build and first mesh {pin_s:.2f} s), weights of epoch "
+              f"{int(scalars['epoch'])} bit-equal to ckpt_best.pkl; pinned vs live "
+              f"prediction of the test mesh identical: {same} (max |dv| "
+              f"{float(np.abs(v_pin - v_live).max()):.3e})")
+        assert same
+        del pinned, live
+
+        # 8.3 predict_dir
+        banded_cuda.reset_launches()
+        t0 = time.perf_counter()
+        rep = predict.predict_dir(run_dir, dataset_root=root)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_launches = dict(banded_cuda.LAUNCHES)
+        out_path = os.path.join(rep["result_dir"], f"ball_n{test_seed}-60.obj")
+        out = meshio.read_obj(out_path)
+        print(f"[{tag}] predict_dir: {serve_s:.3f} s wall (pinned import, one mesh); "
+              f"angle1 {rep['angle_mean1']:.4f} angle2 {rep['angle_mean2']:.4f}; "
+              f"launches {serve_launches}")
+        assert rep["result_dir"] == os.path.join(test_dir, "result_smoke")
+        assert out.n_vertices == mesh_t.n_vertices and np.isfinite(out.points).all()
+        assert np.isfinite([rep["angle_mean1"], rep["angle_mean2"]]).all()
+        assert sum(_fwd_only(serve_launches).values()) >= 32, serve_launches  # 2 x 16 convs
+        assert serve_launches == _counts(**_fwd_only(serve_launches))
+        assert serve_launches["aggregate_first"] and serve_launches["transform_first"]
+        # train() = 8 steps + 2 evaluation passes over the same two patches
+        assert _fwd_only(train_launches) == {
+            k: n_steps * step[k] + 2 * v for k, v in _fwd_only(serve_launches).items()}
+
+        # 8.4 eval_denoising_result: the nearest-distance kernel, once per mesh
+        orig_dir = os.path.join(test_dir, "original")
+        banded_cuda.reset_launches()
+        t0 = time.perf_counter()
+        ev = eval_denoising_result(rep["result_dir"], orig_dir)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_launches = dict(banded_cuda.LAUNCHES)
+        info = os.path.join(rep["result_dir"], "ErrorInfo_h.txt")
+        assert os.path.exists(info) and "ball_n3-60.obj" in open(info).read()
+        os.remove(info)
+        ev_cpu = eval_denoising_result(rep["result_dir"], orig_dir, device="cpu")
+        assert os.path.exists(info)
+        mel = geometry.mean_edge_length_np(clean.points, clean.ev_indices)
+        c_g, c_c = ev["corpus"], ev_cpu["corpus"]
+        launched = {k: v for k, v in eval_launches.items() if v}
+        print(f"[{tag}] eval_denoising_result: {eval_s:.3f} s wall; launches "
+              f"{launched}; angle {c_g['angle']:.6f}, "
+              f"normal_mse {c_g['normal_mse']:.6f}, vertex_dist {c_g['vertex_dist']:.8f} "
+              f"(device=\"cpu\": {c_c['vertex_dist']:.8f}; difference "
+              f"{abs(c_g['vertex_dist'] - c_c['vertex_dist']) / mel:.3e} mean edge lengths, "
+              f"tol 1e-5)")
+        assert eval_launches == _counts(nearest=len(ev["rows"])) and len(ev["rows"]) == 1
+        for k in ("angle", "normal_mse"):
+            assert abs(c_g[k] - c_c[k]) <= 1e-6, (k, c_g[k], c_c[k])
+        assert abs(c_g["vertex_dist"] - c_c["vertex_dist"]) <= 1e-5 * mel
+        assert np.isfinite(list(c_g.values())).all()
+
+        # 8.5 resume: restore ckpt_last.pkl (epoch 1), one more epoch, against
+        # a fresh 3-epoch fit whose best weights from_run must return
+        bc = cfg.build_config()
+        t0 = time.perf_counter()
+        sets = [DualDataset(root, "Synthetic", split, f"{split}_list.txt",
+                            cfg.filter_patch_count if split == "train" else 0,
+                            cfg.sub_size, bc) for split in ("train", "test")]
+        cache_s = time.perf_counter() - t0
+        cfg3 = cfg.with_updates(max_epoch=3)
+        fresh_dir = os.path.join(tmp, "fresh")
+        os.makedirs(fresh_dir)
+        cfg3.to_json(os.path.join(fresh_dir, "params.json"))
+        hist, kept = {}, {}
+
+        def keep(name):
+            def on_epoch(t, m, e):
+                hist.setdefault(name, {})[t.epoch] = (m["loss"], e["error_f"])
+                if e["error_f"] <= t.best_error:
+                    kept[name] = {k: v.detach().clone()
+                                  for k, v in t.model.state_dict().items()}
+            return on_epoch
+
+        fresh = Trainer(cfg3, *sets, run_dir=fresh_dir)
+        fresh.fit(on_epoch=keep("fresh"))
+        resumed = Trainer(cfg3, *sets)
+        resumed.restore(os.path.join(run_dir, "ckpt_last.pkl"))
+        assert resumed.epoch == 2
+        resumed.fit(on_epoch=keep("resumed"))
+        torch.cuda.synchronize()
+        (l_f, e_f), (l_r, e_r) = hist["fresh"][2], hist["resumed"][2]
+        rel = abs(l_f - l_r) / abs(l_f)
+        p_diff = max(float((a - b).abs().max()) for a, b in zip(
+            fresh.model.state_dict().values(), resumed.model.state_dict().values()))
+        first = [abs(hist["fresh"][i][0] - epochs[i]["loss"]) / abs(epochs[i]["loss"])
+                 for i in (0, 1)]
+        print(f"[{tag}] resume: datasets from the cache in {cache_s:.3f} s; epoch 2 of a "
+              f"fresh 3-epoch fit: loss {l_f:.7f} error_f {e_f:.5f}; after restore of "
+              f"ckpt_last.pkl: loss {l_r:.7f} error_f {e_r:.5f}; relative difference "
+              f"{rel:.3e} (tol 1e-6); max parameter difference {p_diff:.3e}; epochs 0-1 "
+              f"against train()'s own: {first[0]:.3e}, {first[1]:.3e}")
+        assert list(hist["resumed"]) == [2] and rel <= 1e-6
+        served = predict.Predictor.from_run(fresh_dir)  # no snapshot there: live
+        assert type(served) is predict.Predictor
+        for name, t in kept["fresh"].items():
+            assert torch.equal(served.model.state_dict()[name], t), name
+        print(f"[{tag}] Predictor.from_run(fresh run): state dict bit-equal to the "
+              f"trainer's best weights (best error_f {fresh.best_error:.5f})")
+
+        pts = (np.ascontiguousarray(out.points, np.float32),
+               np.ascontiguousarray(clean.points, np.float32))
+        return {"launches": eval_launches["nearest"], "points": pts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_nearest(torch, label, a, b, calls, reps, plain_reps, brute, library):
+    """The nearest-distance kernel against its plain version (and a float64
+    brute force where asked), timed, with its bound and the library call."""
+    from geobignn_tpu_torch.ops import nn_cuda
+
+    n, k = a.shape
+    m = b.shape[0]
+    d2 = nn_cuda.nearest_distance(a, b, squared=True)
+    d = nn_cuda.nearest_distance(a, b)
+    torch.cuda.synchronize()
+    p2 = nn_cuda.nearest_distance_plain(a, b, squared=True)
+    p = nn_cuda.nearest_distance_plain(a, b)
+    scale = float((a * a).sum(1).max() + (b * b).sum(1).max())
+    err2 = float((d2 - p2).abs().max())
+    err_d = float((d - p).abs().max())
+    assert torch.isfinite(d).all() and float(d.min()) >= 0.0
+    err2_64 = err_d_64 = None
+    if brute:
+        ref = torch.cat([(torch.cdist(a[s:s + 4096].double(), b.double()) ** 2).amin(dim=1)
+                         for s in range(0, n, 4096)])
+        err2_64 = float((d2.double() - ref).abs().max())
+        err_d_64 = float((d.double() - ref.sqrt()).abs().max())
+        del ref
+    ms = _cuda_ms(lambda: nn_cuda.nearest_distance(a, b), reps, warmup=1)
+    plain_ms = _cuda_ms(lambda: nn_cuda.nearest_distance_plain(a, b), plain_reps, warmup=1)
+    library_ms = None
+    if library:  # one PyTorch call of the same function; it materialises (n, m)
+        lib = torch.cdist(a, b).min(dim=1).values
+        err_lib = float((d - lib).abs().max())
+        del lib
+        library_ms = _cuda_ms(lambda: torch.cdist(a, b).min(dim=1).values, 3, warmup=1)
+    byts = 4 * ((n + m) * k + n)
+    ops = n * m * (2 * k + 3)
+    t_b, t_o = byts / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    row = dict(kernel="nearest", shape=label, n=n, m=m, k=k, calls=calls,
+               max_abs_err=err2, tol=NEAREST_TOL * scale, err_d=err_d,
+               err_d2_vs_f64=err2_64, err_d_vs_f64=err_d_64,
+               err_d_vs_library=err_lib if library else None, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations", bytes=byts, ops=ops)
+    print("[kernel] " + json.dumps(row))
+    assert err2 <= NEAREST_TOL * scale, row
+    assert err2_64 is None or err2_64 <= NEAREST_TOL * scale, row
+    return row
 
 
 def main() -> int:
@@ -777,8 +1068,31 @@ def main() -> int:
         del train
         torch.cuda.empty_cache()
 
+    # 8. the run-directory path ---------------------------------------------------
+    run = rundir_phase(torch, np)
+    torch.cuda.empty_cache()
+
+    # 9. the nearest-distance kernel against its plain version -------------------
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def cloud(n, k):
+        return torch.randn((n, k), device="cuda", generator=gen)
+
+    nn_rows = [check_nearest(torch, "path", *(torch.from_numpy(x).to("cuda")
+                                              for x in run["points"]),
+                             calls=run["launches"], reps=20, plain_reps=3,
+                             brute=True, library=True)]
+    for label, n, k, reps, plain_reps, brute, library in (
+            ("40k", 40_000, 3, 10, 2, True, True),
+            ("500k", 500_000, 3, 2, 1, False, False),
+            ("wide", 8_192, 64, 10, 3, True, True)):
+        nn_rows.append(check_nearest(torch, label, cloud(n, k), cloud(n, k), 0, reps,
+                                     plain_reps, brute, library))
+        torch.cuda.empty_cache()
+    assert nn_rows[0]["n"] == nn_rows[0]["m"] == 10242 and run["launches"] == 1
+
     kernels = []
-    for name in KERNELS:
+    for name in AGGREGATES:
         if name.endswith("_bwd"):
             mine, n_l = [r for r in bwd_rows if r["kernel"] == name], fit_launches[name]
         else:
@@ -786,9 +1100,17 @@ def main() -> int:
             n_l = (launches1 if name.startswith("bs_") else launches)[name]
         assert mine and n_l > 0, name
         kernels.append(_kernel_entry(name, mine, n_l))
+    path_row = nn_rows[0]
+    kernels.append({
+        "name": "nearest_distance", "route": "cuda",
+        "source": "geobignn_tpu_torch/csrc/nearest.cu",
+        "replaces": "geobignn_tpu/ops/pallas_nn.py:42", "launches": run["launches"],
+        **{k: path_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}})
+    assert len(kernels) == len(KERNELS) == 9
     print(f"[time] {time.perf_counter() - t_start:.1f} s after the card was found")
 
-    # 8. result -----------------------------------------------------------------
+    # 10. result -----------------------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

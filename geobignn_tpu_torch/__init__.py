@@ -2,8 +2,10 @@
 
 A second package beside the JAX one, which stays the reference.  It imports
 torch, numpy and scipy and nothing of JAX or of `geobignn_tpu`.  Entry points
-(`infer.predict.Predictor`, `train.trainer.Trainer`,
-`models.dual_gnn.DualGNN`) run on CUDA by default and raise when no GPU is
+(`python -m geobignn_tpu_torch train|infer|eval|campaign`,
+`train.trainer.train` / `Trainer`, `infer.predict.predict_dir` / `Predictor`,
+`infer.evaluate.eval_denoising_result`, `models.dual_gnn.DualGNN`) run on
+CUDA by default and raise when no GPU is
 present unless the caller passes device="cpu"; the banded aggregate
 (ops/banded_cuda.py) launches its hand-written Hopper kernels, forward and
 backward, for CUDA tensors and runs its plain PyTorch versions for CPU

@@ -2,15 +2,21 @@
 
 Counterpart of part of geobignn_tpu/data/dataset.py: `split_mesh`,
 `process_one_mesh`, `discover_mesh_pairs`, `branch_messages`,
-`BaseDualDataset.get` / `messages_per_sample` and `InMemoryDataset`, copied
-so that patches and padded samples are identical to the JAX package's.  The
-disk-backed `DualDataset`, its cache and size bucketing are not ported yet
-(ROADMAP: modules to port, the rest of the package).
+`BaseDualDataset.get` / `messages_per_sample`, `InMemoryDataset` and the
+disk-backed `DualDataset` with its content-hashed preprocessing cache, copied
+so that patches, padded samples and cache files are identical to the JAX
+package's: the same file names (`_file_key` of the noisy .obj, `_config_key`
+of the BuildConfig) and the same arrays, so either package reads a cache the
+other wrote.  Size bucketing (`bucketize`) is not ported yet (ROADMAP:
+modules to port, the rest of the package).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
+import hashlib
+import json
 import os
 import sys
 from collections import Counter
@@ -21,6 +27,105 @@ from geobignn_tpu_torch import geometry, graphs, structs
 from geobignn_tpu_torch.data import builder
 from geobignn_tpu_torch.meshio import TriMesh, read_obj
 from geobignn_tpu_torch.models.dual_gnn import CONV_SCHEDULE
+from geobignn_tpu_torch.pool.hierarchy import PoolLevelSpec
+
+_BUILD_VERSION = 4  # the JAX package's: bumped on build-semantics changes, so
+# content+config caches invalidate in both packages together
+
+
+def _config_key(cfg: builder.BuildConfig) -> str:
+    d = dataclasses.asdict(cfg)
+    d["_build_version"] = _BUILD_VERSION
+    return hashlib.sha256(
+        json.dumps(d, sort_keys=True, default=str).encode()
+    ).hexdigest()[:12]
+
+
+def _file_key(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()[:16]
+
+
+# --------------------------------------------------------------------------
+# raw-sample (de)serialization
+# --------------------------------------------------------------------------
+
+def _branch_to_dict(prefix: str, b: builder.RawBranch) -> dict:
+    d = {
+        f"{prefix}_x": b.x,
+        f"{prefix}_ei": b.edge_index,
+        f"{prefix}_w": b.edge_weight,
+        f"{prefix}_n": np.int64(b.n_nodes),
+    }
+    if b.y is not None:
+        d[f"{prefix}_y"] = b.y
+    if b.depth_direction is not None:
+        d[f"{prefix}_depth"] = b.depth_direction
+    for i, s in enumerate(b.specs):
+        d[f"{prefix}_s{i}_c0"] = s.step_clusters[0]
+        d[f"{prefix}_s{i}_c1"] = s.step_clusters[1]
+        d[f"{prefix}_s{i}_sizes"] = np.asarray(s.step_sizes, dtype=np.int64)
+        d[f"{prefix}_s{i}_ei"] = s.edge_index
+        d[f"{prefix}_s{i}_w"] = s.edge_weight
+        d[f"{prefix}_s{i}_unpool"] = s.unpool
+    return d
+
+
+def _branch_from_dict(prefix: str, d) -> builder.RawBranch:
+    specs = []
+    for i in range(2):
+        sizes = [int(v) for v in d[f"{prefix}_s{i}_sizes"]]
+        specs.append(
+            PoolLevelSpec(
+                step_clusters=[d[f"{prefix}_s{i}_c0"], d[f"{prefix}_s{i}_c1"]],
+                step_sizes=sizes,
+                unpool=d[f"{prefix}_s{i}_unpool"],
+                edge_index=d[f"{prefix}_s{i}_ei"],
+                edge_weight=d[f"{prefix}_s{i}_w"],
+                n_out=sizes[-1],
+            )
+        )
+    return builder.RawBranch(
+        x=d[f"{prefix}_x"],
+        y=d[f"{prefix}_y"] if f"{prefix}_y" in d else None,
+        edge_index=d[f"{prefix}_ei"],
+        edge_weight=d[f"{prefix}_w"],
+        specs=specs,
+        n_nodes=int(d[f"{prefix}_n"]),
+        depth_direction=d[f"{prefix}_depth"] if f"{prefix}_depth" in d else None,
+    )
+
+
+def save_raw_sample(path, bv, bf, meta, v_idx=None, f_idx=None):
+    d = _branch_to_dict("v", bv) | _branch_to_dict("f", bf)
+    d["centroid"] = meta["centroid"]
+    d["scale"] = np.float32(meta["scale"])
+    d["fv_indices"] = meta["fv_indices"]
+    if "perm_v" in meta:
+        d["perm_v"] = meta["perm_v"]
+        d["perm_f"] = meta["perm_f"]
+    if v_idx is not None:
+        d["V_idx"] = v_idx
+    if f_idx is not None:
+        d["F_idx"] = f_idx
+    np.savez_compressed(path, **d)
+
+
+def load_raw_sample(path):
+    with np.load(path) as z:
+        d = dict(z)
+    bv = _branch_from_dict("v", d)
+    bf = _branch_from_dict("f", d)
+    meta = dict(
+        centroid=d["centroid"], scale=float(d["scale"]), fv_indices=d["fv_indices"]
+    )
+    if "perm_v" in d:
+        meta["perm_v"] = d["perm_v"]
+        meta["perm_f"] = d["perm_f"]
+    return bv, bf, meta, d.get("V_idx"), d.get("F_idx")
 
 
 def split_mesh(
@@ -57,14 +162,14 @@ def process_one_mesh(
     submesh_size: int,
     original_path_or_mesh=None,
     build_cfg: builder.BuildConfig = builder.BuildConfig(),
+    cache_dir: str | None = None,
     filter_patch_count: int = 0,
 ) -> list:
     """Preprocess one (noisy, original) pair into raw sub-samples.
 
     Returns [(bv, bf, meta, V_idx, F_idx)].  The full-mesh centroid/scale is
     recorded on every patch (normalization is global, reference
-    code/dataset.py:140,151-152).  The JAX counterpart's on-disk cache is
-    not ported (inference passes no cache directory)."""
+    code/dataset.py:140,151-152).  Caches each patch when cache_dir given."""
     mesh_n = (
         read_obj(noisy_path_or_mesh)
         if isinstance(noisy_path_or_mesh, str)
@@ -75,15 +180,28 @@ def process_one_mesh(
         if isinstance(original_path_or_mesh, str)
         else original_path_or_mesh
     )
+
+    key = None
+    if cache_dir is not None and isinstance(noisy_path_or_mesh, str):
+        os.makedirs(cache_dir, exist_ok=True)
+        key = _file_key(noisy_path_or_mesh) + "-" + _config_key(build_cfg)
+        base = os.path.splitext(os.path.basename(noisy_path_or_mesh))[0]
+
     _, centroid, scale = geometry.center_and_scale_np(
         mesh_n.points, mesh_n.ev_indices, build_cfg.scale_type
     )
 
     results = []
     patches = split_mesh(mesh_n, submesh_size)
-    for sub_n, v_idx, f_idx in patches:
+    for pi, (sub_n, v_idx, f_idx) in enumerate(patches):
         if len(patches) > 1 and sub_n.n_faces <= filter_patch_count:
             continue
+        cache_path = None
+        if key is not None:
+            cache_path = os.path.join(cache_dir, f"{base}-{key}-p{pi}.npz")
+            if os.path.exists(cache_path):
+                results.append(load_raw_sample(cache_path))
+                continue
         sub_o = None
         if mesh_o is not None:
             sub_o = mesh_o if v_idx is None else TriMesh(
@@ -91,7 +209,10 @@ def process_one_mesh(
             )
         # patches normalize in the FULL mesh's frame
         bv, bf, meta = builder.build_raw(sub_n, sub_o, build_cfg, centroid, scale)
-        results.append((bv, bf, meta, v_idx, f_idx))
+        entry = (bv, bf, meta, v_idx, f_idx)
+        if cache_path is not None:
+            save_raw_sample(cache_path, *entry)
+        results.append(entry)
     return results
 
 
@@ -210,4 +331,36 @@ class InMemoryDataset(BaseDualDataset):
             self.entries.extend(
                 process_one_mesh(m_n, submesh_size, m_o, build_cfg)
             )
+        self._compute_plan(build_cfg.granularity)
+
+
+class DualDataset(BaseDualDataset):
+    """Disk-backed dataset: discovery, preprocessing (cached under
+    `{split}/processed_cache`), one shared SizePlan."""
+
+    def __init__(
+        self,
+        root_dir: str,
+        data_type: str,
+        split: str = "train",
+        data_list_txt: str | None = None,
+        filter_patch_count: int = 0,
+        submesh_size: int = sys.maxsize,
+        build_cfg: builder.BuildConfig = builder.BuildConfig(),
+        cache: bool = True,
+    ):
+        self.build_cfg = build_cfg
+        self.data_dir = os.path.join(root_dir, data_type, split)
+        self.pairs = discover_mesh_pairs(root_dir, data_type, split, data_list_txt)
+
+        cache_dir = os.path.join(self.data_dir, "processed_cache") if cache else None
+        self.entries = []
+        for noisy, orig in self.pairs:
+            self.entries.extend(
+                process_one_mesh(
+                    noisy, submesh_size, orig, build_cfg, cache_dir,
+                    filter_patch_count if split == "train" else 0,
+                )
+            )
+
         self._compute_plan(build_cfg.granularity)

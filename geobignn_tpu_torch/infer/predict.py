@@ -1,22 +1,33 @@
 """Inference pipeline: submesh stitching, normal-field integration, export.
 
-Counterpart of geobignn_tpu/infer/predict.py (Predictor.predict_mesh,
-denoise, update_positions and the body of predict_dir).  Per mesh: split
-into BFS patches of at most `sub_size` faces, build each patch's sample
-under one merged plan and one merged set of table widths (so every patch
-has the same shapes), run DualGNN on each patch, average the overlaps
-(int32 counters) and un-permute the RCM order, denormalize, then run the
-60-iteration vertex re-projection onto the predicted normal field, write
-`{name}-60.obj` and report the two angular errors.
+Counterpart of geobignn_tpu/infer/predict.py.  Per mesh: split into BFS
+patches of at most `sub_size` faces, build each patch's sample under one
+merged plan and one merged set of table widths (so every patch has the same
+shapes), run DualGNN on each patch, average the overlaps (int32 counters)
+and un-permute the RCM order, denormalize, then run the 60-iteration vertex
+re-projection onto the predicted normal field, write `{name}-60.obj` and
+report the two angular errors.
 
-Not ported yet (ROADMAP): `Predictor.from_run` and run pinning (they read
-the JAX msgpack checkpoint), the CLI, and the halo-sharded path.
+`Predictor.from_run` loads a run directory.  When the run carries a
+snapshot of this package (`code_bak/geobignn_tpu_torch`, written by
+train/trainer.train), inference is version-pinned: the snapshot is imported
+in place of the live package, builds its kernels from its own `csrc/` into
+`code_bak/build/` and its native library from `code_bak/native/`, and
+`predict_dir` puts the live package back when the batch is done.  A run
+directory written by the JAX package carries `code_bak/geobignn_tpu` only;
+that is never imported: its `params.json` and checkpoint are read and the
+live port serves the weights.
+
+Not ported yet (ROADMAP): the halo-sharded path (`halo_parts`,
+`halo_banded` are accepted and refused).
 """
 
 from __future__ import annotations
 
 import glob
+import importlib
 import os
+import sys
 import time
 
 import numpy as np
@@ -26,7 +37,10 @@ from geobignn_tpu_torch import geometry, meshio
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import builder, dataset as ds_mod
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
-from geobignn_tpu_torch.utils import resolve_device
+from geobignn_tpu_torch.train import checkpoint as ckpt
+from geobignn_tpu_torch.utils import not_ported, resolve_device
+
+_PKG = __name__.split(".")[0]
 
 
 def update_positions(
@@ -58,11 +72,76 @@ def update_positions(
     return pts
 
 
+_PINNED_STATE: dict | None = None  # live modules displaced by a snapshot
+
+
+def _package_modules() -> list[str]:
+    return [m for m in list(sys.modules) if m == _PKG or m.startswith(_PKG + ".")]
+
+
+def _import_pinned(run_dir: str):
+    """Import the snapshot of this package saved under `run_dir/code_bak`,
+    REPLACING the live package in sys.modules, and return its infer.predict
+    module — so inference runs the training-time code (reference:
+    code/test_dual.py:127-128 `sys.path.insert(0, bak_dir)`).  Returns None
+    when the run has no snapshot of this package.  Process-global while the
+    snapshot is in use (function-level imports inside snapshot code must
+    also resolve to the snapshot); batch entries (predict_dir) call
+    `unpin_live_package` when done, so that a train -> predict chain, or a
+    test suite, does not run the rest of the process on the snapshot.
+
+    The snapshot's modules count their kernel launches in the live
+    package's counters (every `LAUNCHES` of the snapshot is rebound to the
+    live dict), so a process has one place to read them."""
+    bak = os.path.abspath(os.path.join(run_dir, "code_bak"))
+    if not os.path.isdir(os.path.join(bak, _PKG)):
+        return None
+    live = {m: sys.modules[m] for m in _package_modules()}
+    for m in live:
+        del sys.modules[m]
+    sys.path.insert(0, bak)
+    try:
+        mod = importlib.import_module(__name__)
+    except Exception:
+        # a failed snapshot import must not leave a half-purged process
+        sys.path.remove(bak)
+        for m in _package_modules():
+            del sys.modules[m]
+        sys.modules.update(live)
+        raise
+    counters = getattr(live.get(_PKG + ".ops.banded_cuda"), "LAUNCHES", None)
+    if counters is not None:
+        for m in _package_modules():
+            if isinstance(getattr(sys.modules[m], "LAUNCHES", None), dict):
+                sys.modules[m].LAUNCHES = counters
+    global _PINNED_STATE
+    _PINNED_STATE = dict(live=live, bak=bak)
+    return mod
+
+
+def unpin_live_package() -> None:
+    """Undo `_import_pinned`'s sys.modules takeover: restore the live
+    modules.  Safe no-op when nothing is pinned.  Snapshot objects already
+    constructed keep working through their own module references; only NEW
+    imports resolve live again."""
+    global _PINNED_STATE
+    if not _PINNED_STATE:
+        return
+    bak = _PINNED_STATE["bak"]
+    if bak in sys.path:
+        sys.path.remove(bak)
+    for m in _package_modules():
+        del sys.modules[m]
+    sys.modules.update(_PINNED_STATE["live"])
+    _PINNED_STATE = None
+
+
 class Predictor:
     """Denoises meshes (whole or patch-stitched) with given weights.
 
-    `params` is a DualGNN state dict (params.from_jax_params, params.load_npz
-    or a module's state_dict()).  Runs on CUDA unless device="cpu"."""
+    `params` is a DualGNN state dict (params.from_jax_params, params.load_npz,
+    a module's state_dict() or a checkpoint's).  Runs on CUDA unless
+    device="cpu"."""
 
     def __init__(self, cfg: Config, params: dict, sub_size: int | None = None,
                  device=None):
@@ -79,6 +158,27 @@ class Predictor:
         )
         self.model.load_state_dict(params)
         self.model.eval()
+
+    @classmethod
+    def from_run(cls, run_dir: str, sub_size: int | None = None,
+                 pinned: bool = True, device=None) -> "Predictor":
+        """The predictor of a run directory (`params.json` and `ckpt_best.pkl`,
+        else `ckpt_last.pkl`), written by this package's `train` or by the JAX
+        package's.  `pinned=True` (default, reference parity): when the run
+        carries a snapshot of this package, the model and inference code are
+        imported FROM the snapshot, so predictions are immune to later edits
+        of the installed package."""
+        if pinned:
+            mod = _import_pinned(run_dir)
+            if mod is not None and mod.Predictor is not cls:
+                return mod.Predictor.from_run(run_dir, sub_size, pinned=False,
+                                              device=device)
+        cfg = Config.from_json(os.path.join(run_dir, "params.json"))
+        path = os.path.join(run_dir, "ckpt_best.pkl")
+        if not os.path.exists(path):
+            path = os.path.join(run_dir, "ckpt_last.pkl")
+        state, _, _ = ckpt.load_checkpoint(path)
+        return cls(cfg, state, sub_size, device)
 
     def _apply(self, sample):
         with torch.no_grad():
@@ -146,9 +246,13 @@ class Predictor:
         vp = vp / meta["scale"] + meta["centroid"]  # denormalize
         return vp.astype(np.float32), np_arr.astype(np.float32)
 
-    def denoise(self, mesh_n: meshio.TriMesh, n_update_iters: int = 60
+    def denoise(self, mesh_n: meshio.TriMesh, n_update_iters: int = 60,
+                halo_parts: int | None = None, halo_banded: bool = False,
                 ) -> tuple[np.ndarray, np.ndarray]:
         """Full pipeline: predict + integrate normals; returns (V, Np)."""
+        if (halo_parts and halo_parts > 1) or halo_banded:
+            not_ported("halo-sharded inference (halo_parts, halo_banded)",
+                       "modules to port, item 6, halo and multi-chip paths")
         vp, np_arr = self.predict_mesh(mesh_n)
         dev = self.device
         depth = None
@@ -174,9 +278,34 @@ def _angular_error(np_pred: np.ndarray, n_true: np.ndarray) -> float:
     return float(np.degrees(np.arccos(val)).mean())
 
 
+def predict_dir(
+    run_dir: str,
+    data_dir: str | None = None,
+    dataset_root: str | None = None,
+    sub_size: int | None = None,
+    n_update_iters: int = 60,
+    halo_parts: int | None = None,
+    halo_banded: bool = False,
+    device=None,
+) -> dict:
+    """Denoise every test mesh of a run's data_type; writes `{name}-60.obj`
+    into `result_{flag}` and reports face-weighted angle1/angle2 means."""
+    resolve_device(device)
+    try:
+        pred = Predictor.from_run(run_dir, sub_size, device=device)
+        return predict_dir_body(pred, data_dir, dataset_root, n_update_iters,
+                                halo_parts, halo_banded)
+    finally:
+        # version-pinning replaced the live package in sys.modules for the
+        # duration of this batch; restore it so the rest of the process — a
+        # train -> predict chain, a campaign, the test suite — runs live
+        unpin_live_package()
+
+
 def predict_dir_body(pred: Predictor, data_dir: str | None = None,
                      dataset_root: str | None = None,
-                     n_update_iters: int = 60) -> dict:
+                     n_update_iters: int = 60, halo_parts: int | None = None,
+                     halo_banded: bool = False) -> dict:
     """Denoise every test mesh of the config's data_type (or every .obj of
     `data_dir`); writes `{name}-{n_update_iters}.obj` into `result_{flag}`
     and reports face-weighted angle1/angle2 means."""
@@ -200,7 +329,8 @@ def predict_dir_body(pred: Predictor, data_dir: str | None = None,
     for noisy_path, orig_path in pairs:
         t0 = time.time()
         mesh_n = meshio.read_obj(noisy_path)
-        v, np_arr = pred.denoise(mesh_n, n_update_iters)
+        v, np_arr = pred.denoise(mesh_n, n_update_iters, halo_parts=halo_parts,
+                                 halo_banded=halo_banded)
         base = os.path.splitext(os.path.basename(noisy_path))[0]
         out_path = os.path.join(result_dir, f"{base}-{n_update_iters}.obj")
         meshio.write_obj(out_path, v, mesh_n.fv_indices)

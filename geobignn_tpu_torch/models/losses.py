@@ -21,6 +21,8 @@ import math
 
 import torch
 
+from geobignn_tpu_torch.ops import nn_cuda
+
 NEAREST_BLOCK = 1024
 
 
@@ -127,8 +129,11 @@ def _tiled_nearest(a, b, mask_b, block: int):
 def nearest_distance(a, b, block: int = NEAREST_BLOCK, metric: str = "euclidean"):
     """Nearest-neighbour distances a->b over row blocks (the evaluation
     metric; reference my_hausdorff.py:17-49 over the `hausdorff` package's
-    euclidean / manhattan / chebyshev / cosine metrics)."""
+    euclidean / manhattan / chebyshev / cosine metrics).  The euclidean
+    metric on CUDA tensors is the hand-written kernel of ops/nn_cuda.py."""
     if metric == "euclidean":
+        if a.is_cuda:
+            return nn_cuda.nearest_distance(a, b)
         mask_b = torch.ones(b.shape[0], dtype=a.dtype, device=a.device)
         return torch.sqrt(_tiled_nearest(a, b, mask_b, block)[0])
     if metric == "manhattan":

@@ -2,12 +2,19 @@
 
 The port's own binding to the same C++ source the JAX package binds
 (geobignn_tpu/native.py).  It builds `native/libmeshkernel.so` with
-`make -C native` at first use and falls back to the numpy implementations
-when the toolchain is unavailable; `has_native()` reports which path is
-active.  The two paths draw different seeded visit orders in
-pool/hierarchy.greedy_matching, so the port must take the native path
-whenever the JAX package does, or the two build different pooling
-hierarchies from the same mesh."""
+`make -C native` at first use, from the `native/` directory beside this
+package; `has_native()` reports whether the library is loaded.
+
+The native and the numpy implementations draw different seeded visit orders
+in pool/hierarchy.greedy_matching, so they build different pooling
+hierarchies from the same mesh.  Which one runs must therefore depend on
+the machine alone, as it does for the JAX package: where `make` or the
+compiler is missing, both packages take the numpy implementations.  It must
+not depend on where the package was copied to: when the sources are not
+beside the package (a copy of the package without `native/`), `_load`
+raises instead of quietly taking the numpy path.  A run directory's code
+snapshot carries the sources for that reason
+(train/trainer.snapshot_code)."""
 
 from __future__ import annotations
 
@@ -17,8 +24,9 @@ import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libmeshkernel.so")
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+SOURCE_FILES = ("meshkernel.cpp", "Makefile")
+_SO_PATH = os.path.join(NATIVE_DIR, "libmeshkernel.so")
 
 _lib = None
 _tried = False  # one build attempt per process; a failed one is not retried
@@ -28,11 +36,18 @@ def _load():
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
+    missing = [f for f in SOURCE_FILES if not os.path.exists(os.path.join(NATIVE_DIR, f))]
+    if missing:
+        raise RuntimeError(
+            f"the native mesh kernel's sources {missing} are not in {NATIVE_DIR}: "
+            "this copy of geobignn_tpu_torch has no native/ directory beside it, and "
+            "the numpy implementations build other pooling hierarchies than the "
+            "native ones")
     _tried = True
     if not os.path.exists(_SO_PATH):
         try:
             subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "-s"], check=True, capture_output=True
+                ["make", "-C", NATIVE_DIR, "-s"], check=True, capture_output=True
             )
         except (OSError, subprocess.CalledProcessError):
             return None

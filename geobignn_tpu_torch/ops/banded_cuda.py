@@ -14,12 +14,14 @@ Counterpart of geobignn_tpu/ops/banded_pallas.py.  It holds
     `feast_conv_banded_pallas`), `feast_conv_hybrid_band` and
     `feast_conv_hybrid`.
 
-Each kernel source — the banded ones and the block-sparse ones that
-ops/blocksparse.py wraps — is built with nvcc for sm_90a into its own
+Each kernel source — the banded ones, the block-sparse ones that
+ops/blocksparse.py wraps and the nearest-distance one of ops/nn_cuda.py —
+is built with nvcc for sm_90a into its own
 library under build/geobignn_tpu_torch/ at first use (one nvcc per source,
 started together), from the repo's sources only, and loaded through ctypes.
 Each schedule counts its forward and backward launches in `LAUNCHES`, the
-block-sparse ones under `bs_` names.
+block-sparse ones under `bs_` names, the nearest-distance kernel under
+`nearest`.
 
 The plain versions take the window as a pair of functions (`_BandWindow`
 here, ops/blocksparse.py's over `blk_idx`): the gather of node rows into
@@ -45,7 +47,8 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 SOURCES = {"fwd": os.path.join(_CSRC, "banded_fwd.cu"),
            "bwd": os.path.join(_CSRC, "banded_bwd.cu"),
            "bs_fwd": os.path.join(_CSRC, "blocksparse_fwd.cu"),
-           "bs_bwd": os.path.join(_CSRC, "blocksparse_bwd.cu")}
+           "bs_bwd": os.path.join(_CSRC, "blocksparse_bwd.cu"),
+           "nearest": os.path.join(_CSRC, "nearest.cu")}
 HEADERS = tuple(os.path.join(_CSRC, h) for h in (
     "banded_common.cuh", "window_fwd.cuh", "window_bwd.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "geobignn_tpu_torch")
@@ -59,7 +62,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"aggregate_first": 0, "transform_first": 0,
             "aggregate_first_bwd": 0, "transform_first_bwd": 0,
             "bs_aggregate_first": 0, "bs_transform_first": 0,
-            "bs_aggregate_first_bwd": 0, "bs_transform_first_bwd": 0}
+            "bs_aggregate_first_bwd": 0, "bs_transform_first_bwd": 0,
+            "nearest": 0}
 
 _libs: dict = {}
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (registers, smem)

@@ -197,3 +197,62 @@ def test_blocksparse_conv_gradients_on_card_match_cpu(c_in, c_out, cuda_device):
         grads[str(dev)] = [t.grad.cpu() for t in (*leaves.values(), xd)]
     for a, b in zip(grads["cpu"], grads[str(cuda_device)]):
         assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+# --------------------------------------------------------------------------
+# TPU kernel #7: nearest distance (ops/nn_cuda.py, csrc/nearest.cu)
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 64, 130])
+@pytest.mark.parametrize("n,m", [(1, 5), (129, 1), (700, 1500), (1031, 1025)],
+                         ids=lambda v: str(v))
+def test_nearest_kernel_matches_plain_on_card(n, m, k, cuda_device):
+    """Odd sizes around the tiles (128 queries a block; 1024 or 32 rows of b
+    a tile; chunks of 16 coordinates), M below one tile, N = 1.  Squared
+    distances against the plain version on the card and a float64 brute
+    force within 1e-5 * max(|a|^2 + |b|^2); distances never NaN."""
+    from geobignn_tpu_torch.ops import nn_cuda
+
+    rng = np.random.default_rng(1000 * k + n)
+    a = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda_device)
+    b[: min(n, m) // 2] = a[: min(n, m) // 2]  # coincident points: the residual case
+    before = dict(banded_cuda.LAUNCHES)
+    d2 = nn_cuda.nearest_distance(a, b, squared=True)
+    d = nn_cuda.nearest_distance(a, b)
+    torch.cuda.synchronize()
+    assert banded_cuda.LAUNCHES["nearest"] == before["nearest"] + 2
+    assert {k_: v for k_, v in banded_cuda.LAUNCHES.items() if k_ != "nearest"} \
+        == {k_: v for k_, v in before.items() if k_ != "nearest"}
+    ref = (torch.cdist(a.double(), b.double()) ** 2).amin(dim=1)
+    plain = nn_cuda.nearest_distance_plain(a, b, squared=True)
+    bound = 1e-5 * float((a.double() ** 2).sum(1).max() + (b.double() ** 2).sum(1).max())
+    assert d2.shape == d.shape == (n,) and d.dtype == torch.float32
+    assert float((d2.double() - ref).abs().max()) <= bound
+    assert float((d2 - plain).abs().max()) <= bound
+    assert torch.isfinite(d).all() and float(d.min()) >= 0.0
+    assert float((d.double() ** 2 - ref).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_nearest_wrapper_converts_and_checks_before_any_launch(cuda_device):
+    from geobignn_tpu_torch.models import losses
+    from geobignn_tpu_torch.ops import nn_cuda
+
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.normal(size=(300, 3))).to(cuda_device)  # float64
+    b = torch.from_numpy(rng.normal(size=(3, 400)).astype(np.float32)).to(cuda_device).T
+    before = banded_cuda.LAUNCHES["nearest"]
+    for bad_a, bad_b in ((a, b[:, :2]), (a[0], b), (a, b[:0]), (a, b.cpu())):
+        with pytest.raises(ValueError):
+            nn_cuda.nearest_distance(bad_a, bad_b)
+    assert banded_cuda.LAUNCHES["nearest"] == before
+    got = losses.nearest_distance(a, b)  # the metric's entry: euclidean on the card
+    torch.cuda.synchronize()
+    assert banded_cuda.LAUNCHES["nearest"] == before + 1
+    want = nn_cuda.nearest_distance_plain(a.float(), b.contiguous())
+    assert float((got - want).abs().max()) <= 1e-4
+    for metric in ("manhattan", "chebyshev", "cosine"):  # no kernel: plain torch
+        assert losses.nearest_distance(a.float(), b, 128, metric).shape == (300,)
+    assert banded_cuda.LAUNCHES["nearest"] == before + 1

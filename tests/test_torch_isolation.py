@@ -1,4 +1,5 @@
-"""The port stands alone: it imports nothing of JAX or of geobignn_tpu, and
+"""The port stands alone: it imports nothing of JAX, flax, optax, msgpack or
+geobignn_tpu (chip_smoke.py neither), and
 its entry points refuse to run without a GPU unless asked for the CPU."""
 
 from __future__ import annotations
@@ -19,13 +20,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 need = {pkg.__name__ + "." + m for m in (
     "models.losses", "data.augment", "train.optim", "train.logging",
     "train.tb_writer", "train.trainer", "ops.banded_cuda", "ops.blocksparse",
-    "ops.segment", "ops.feastconv")}
+    "ops.segment", "ops.feastconv", "train.checkpoint", "ops.nn_cuda",
+    "infer.evaluate", "infer.predict", "data.dataset", "cli", "__main__")}
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "geobignn_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                                    "geobignn_tpu"))
 print(len(names), bad, sorted(need - set(names)))
-sys.exit(1 if bad or need - set(names) or len(names) < 24 else 0)
+sys.exit(1 if bad or need - set(names) or len(names) < 38 else 0)
 """
 
 
@@ -34,6 +37,21 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_names_no_jax_module():
+    """chip_smoke.py runs where there is no JAX: it imports none of these."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "msgpack", "geobignn_tpu"}
+    assert "geobignn_tpu_torch" in roots
 
 
 def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):

@@ -237,10 +237,13 @@ def test_trainer_matches_jax(batch_size):
 def test_trainer_refuses_unported_modes():
     ds = dataset.InMemoryDataset([_pair(synth, 1, 1)],
                                  builder.BuildConfig(granularity=32, reorder=True))
-    for kw in (dict(restore=True), dict(auto_resume=True), dict(edge_weight_type=3),
+    for kw in (dict(edge_weight_type=3),
                dict(dynamic_pool=True), dict(dp=2), dict(precision="bfloat16"),
                dict(preload=False), dict(preload=False, buckets_growth=1.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(Config(granularity=32, **kw), ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(Config(granularity=32), ds, run_dir="runs", device="cpu")
+    # checkpoints are ported: a run directory, and the restore / auto_resume
+    # flags that train() acts on, no longer raise (tests/test_torch_rundir.py)
+    for kw in (dict(restore=True), dict(auto_resume=True)):
+        Trainer(Config(granularity=32, **kw), ds, device="cpu")
+    assert Trainer(Config(granularity=32), ds, run_dir="runs", device="cpu").run_dir == "runs"
