@@ -33,7 +33,16 @@ non-zero without the final result line:
      warm-up; patch 0's forward on the card against device="cpu";
   6. every forward kernel, banded and block-sparse, against its plain
      version on the card, on the inputs the serving paths gave it (recorded
-     during the warm-ups), timed with CUDA events, with its bound;
+     during the warm-ups), timed with CUDA events, with its bound and the
+     time of each kernel of its launch sequence (`parts_ms`: the operand or
+     operand product, the window kernel, the output product; CUDA events
+     inside the library, a mean over 5 calls); then the edge cases of
+     geobignn_tpu_torch.testing (rows without a set slot, set slots on
+     absent neighbours at both ends of the band, mask values 2 and 3, D
+     under the clamp, a row and a node with more set slots than one batch
+     of 32) through every aggregate kernel, forward and backward,
+     banded and block-sparse, both compute dtypes, against the plain
+     versions (`[edge]` lines);
   7. the training path at the default model's full width, twice: an
      InMemoryDataset of two (noisy, clean) icosphere(5) pairs split into 4
      patches of 20,000 faces, first with noise seeds (0, 6), whose levels
@@ -47,7 +56,9 @@ non-zero without the final result line:
      counts zeroed just before, read just after — with per-epoch loss,
      s/step and edges/s; and each backward kernel against its plain backward on the
      inputs the path gave it (with a seeded gout), timed, with its bound
-     (the banded ones from seeds (0, 6), the block-sparse ones from (1, 2));
+     and its parts (the operand product, the row operand, the row pass, the
+     column pass, the x̄ and W̄ products; the banded ones from seeds (0, 6),
+     the block-sparse ones from (1, 2));
   8. the run-directory path, through the entry points a user calls, at the
      default model's full width (Config() defaults, sub_size 20000), in a
      temp directory: a reference-layout corpus (Synthetic/{train,test}/
@@ -170,6 +181,29 @@ def _source(name):
     return ("geobignn_tpu_torch/csrc/"
             + ("blocksparse" if name.startswith("bs_") else "banded")
             + ("_bwd.cu" if name.endswith("_bwd") else "_fwd.cu"))
+
+
+def _resources(build_log):
+    """One line per kernel of ptxas's report (-Xptxas -v): the source, the
+    kernel with its template arguments, registers, shared memory, spills."""
+    import re
+
+    out, source, kernel, spills = [], "", None, ""
+    for ln in build_log.splitlines():
+        if ln.startswith("== "):
+            source = os.path.basename(ln[3:])
+        elif "Function properties for" in ln:
+            mangled = ln.split()[-1]
+            m = re.search(r"\d+([a-z_]+kernel|nearest_[a-z_]+)(I(?:L[bi]\d+E)+E)?", mangled)
+            kernel = mangled if m is None else m.group(1) + (
+                "<" + ", ".join(re.findall(r"L[bi](\d+)E", m.group(2))) + ">"
+                if m.group(2) else "")
+        elif "spill stores" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln and kernel is not None:
+            out.append(f"{source} {kernel}: {ln.split(':', 1)[1].strip()}; {spills}")
+            kernel = None
+    return out
 
 
 def _cuda_ms(fn, reps, warmup=2):
@@ -349,6 +383,73 @@ def _functions(name):
     return getattr(mod, stem), getattr(mod, stem + "_plain")
 
 
+def _launcher(name):
+    """The function that launches a kernel name's sequence and takes `parts`."""
+    from geobignn_tpu_torch.ops import banded_cuda, blocksparse
+
+    mod = blocksparse if name.startswith("bs_") else banded_cuda
+    return mod._launch_bwd if name.endswith("_bwd") else mod._launch
+
+
+def _parts_ms(name, args, cd, reps=5):
+    """Mean milliseconds of each kernel of one launch sequence (CUDA events
+    between the launches, inside the library)."""
+    launch = _launcher(name)
+    total: dict = {}
+    for i in range(reps + 1):  # the first call warms up
+        parts: dict = {}
+        launch(*args, cd, parts=parts)
+        if i:
+            for k, v in parts.items():
+                total[k] = total.get(k, 0.0) + v / reps
+    return total
+
+
+def check_edge_cases():
+    """Every aggregate kernel, forward and backward, on the seeded edge
+    cases, against its plain version: both compute dtypes, r̄ of the rows
+    under the clamp apart from the other rows'."""
+    import torch
+
+    from geobignn_tpu_torch.testing import edge_case_inputs
+
+    for c_in, c_out in ((64, 32), (128, 64), (12, 32), (6, 32), (128, 128)):
+        tf = c_out < c_in
+        for bs in (False, True):
+            case = edge_case_inputs(c_in, c_out, tile=64, n_blk=3, seed=c_in,
+                                    blocksparse=bs)
+            names = ("r", "p", "x", "w", "m") + (("blk_idx",) if bs else ())
+            args = [torch.from_numpy(case[k]).cuda() for k in names]
+            gout = torch.from_numpy(case["gout"]).cuda()
+            clamped = torch.from_numpy(case["clamped"]).cuda()
+            rest = torch.ones(gout.shape[0], dtype=torch.bool, device="cuda")
+            rest[clamped] = False
+            name = ("bs_" if bs else "") + FWD[tf]
+            kernel, plain = _functions(name)
+            kernel_bwd, plain_bwd = _functions(name + "_bwd")
+            worst = {}
+            for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+                out = kernel(*args, compute_dtype=dt)
+                got = kernel_bwd(*args, gout, compute_dtype=dt)
+                torch.cuda.synchronize()
+                ref = plain(*args, compute_dtype=dt)
+                want = plain_bwd(*args, gout, compute_dtype=dt)
+                pairs = [("out", out, ref), ("r clamped", got[0][clamped], want[0][clamped]),
+                         ("r", got[0][rest], want[0][rest])]
+                pairs += list(zip("pxw", got[1:], want[1:]))
+                errs = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for k, a, b in pairs}
+                assert all(bool(torch.isfinite(a).all()) for _, a, _ in pairs), name
+                assert max(errs.values()) <= tol, (name, c_in, c_out, dt, errs)
+                empty = (args[4].reshape(out.shape[0], -1) == 0).all(dim=1)
+                assert bool(empty.any()) and bool((out[empty] == 0).all())
+                worst[str(dt)] = max(errs.values())
+            print(f"[edge] {name} and its backward, {c_in}->{c_out}, mask "
+                  f"{tuple(args[4].shape)}: worst relative error "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                  + f" (tol {BF16_TOL} / {F32_TOL})")
+
+
 def check_forward(key, ent, reps=20):
     """One forward kernel against its plain version on the recorded inputs:
     compute dtype of the path and float32; timed; with its bound."""
@@ -368,6 +469,7 @@ def check_forward(key, ent, reps=20):
     del got, ref, got32, ref32
     ms = _cuda_ms(lambda: kernel(*args, compute_dtype=cd), reps)
     plain_ms = _cuda_ms(lambda: plain(*args, compute_dtype=cd), 3)
+    parts = _parts_ms(name, args, cd)
     byts, ops, dense = _work(*args[:5], tf, *args[5:])
     bound, by = _bound_ms(byts, ops)
     dense_bound, _ = _bound_ms(byts, dense)
@@ -376,7 +478,7 @@ def check_forward(key, ent, reps=20):
                c_in=c_in, c_out=args[3].shape[2], calls=ent["calls"], max_abs_err=err,
                rel_err=err / scale, rel_err_f32=err32, ms=ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by, dense_bound_ms=dense_bound,
-               bytes=byts, ops=ops, dense_ops=dense)
+               bytes=byts, ops=ops, dense_ops=dense, parts_ms=parts)
     print("[kernel] " + json.dumps(row))
     assert err <= BF16_TOL * scale, row
     assert err32 <= F32_TOL, row
@@ -403,6 +505,7 @@ def check_backward(key, ent, gen):
         del got, ref
     ms = _cuda_ms(lambda: kernel(*args, compute_dtype=cd), 10)
     plain_ms = _cuda_ms(lambda: plain(*args, compute_dtype=cd), 3)
+    parts = _parts_ms(name, args, cd)
     byts, ops, dense = _work_bwd(*args[:5], tf, *args[5:-1])
     bound, by = _bound_ms(byts, ops)
     dense_bound, _ = _bound_ms(byts, dense)
@@ -412,7 +515,7 @@ def check_backward(key, ent, gen):
                max_abs_err=res[cd][0], rel_err=res[cd][1],
                rel_err_f32=res[torch.float32][1], ms=ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by, dense_bound_ms=dense_bound,
-               bytes=byts, ops=ops, dense_ops=dense)
+               bytes=byts, ops=ops, dense_ops=dense, parts_ms=parts)
     print("[kernel-bwd] " + json.dumps(row))
     assert res[cd][1] <= BF16_TOL and res[torch.float32][1] <= F32_TOL, row
     return row
@@ -900,11 +1003,9 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     secs = banded_cuda.build(force=True)
-    ptxas = [ln.strip() for ln in banded_cuda.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"[build] nvcc {sorted(banded_cuda.SOURCES.values())} -> sm_90a "
           f"(in parallel) in {secs:.2f} s")
-    for ln in ptxas:
+    for ln in _resources(banded_cuda.BUILD_LOG):
         print(f"[build] {ln}")
     t0 = time.perf_counter()
     has_native = native.has_native()
@@ -1044,6 +1145,7 @@ def main() -> int:
         assert sum(r["calls"] for r in rows if r["kernel"] == "bs_" + name) \
             == launches1["bs_" + name]
     del captured, captured1
+    check_edge_cases()
     torch.cuda.empty_cache()
 
     # 7. training ---------------------------------------------------------------

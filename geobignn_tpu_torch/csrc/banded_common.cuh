@@ -1,6 +1,7 @@
 // Shared by the banded and the block-sparse FeaStConv aggregates (forward
 // and backward): the compute-dtype cast, where a row block's window lies
-// among the node rows, and the per-node window operand.
+// among the node rows, the elementwise per-node operand, and the event
+// timer of a launch sequence's parts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,7 +11,11 @@
 namespace {
 
 constexpr int kMaxHeads = 16;
-constexpr int kMaxOut = 128;  // 4 column groups of 32
+constexpr int kMaxParts = 8;   // launches of one entry point
+constexpr unsigned kFull = 0xffffffffu;
+// dynamic shared memory a kernel may ask for without opting in: the default
+// 48 KB a block may use, less room for the kernels' static arrays
+constexpr int kDefaultSmem = 40 * 1024;
 
 // cd(): round to bf16 when the compute dtype is bf16 (identity for f32) —
 // the casts of the Pallas bodies.  A product of two bf16 values is exact in
@@ -18,6 +23,18 @@ constexpr int kMaxOut = 128;  // 4 column groups of 32
 // products up to summation order.
 __device__ __forceinline__ float cd(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ void load_heads(float (&dst)[kMaxHeads],
+                                           const float* src, int heads) {
+#pragma unroll
+  for (int h = 0; h < kMaxHeads; ++h) dst[h] = h < heads ? src[h] : 0.f;
 }
 
 // Where the window of a row block of T rows lies among the node rows.
@@ -42,8 +59,7 @@ struct WindowMap {
 
   __device__ __forceinline__ int width() const { return k * tile; }
 
-  // node of window slot w of row block b; w + 31 must not cross a column
-  // block for the caller to step linearly from it (tile % 32 == 0)
+  // node of window slot w of row block b
   __device__ __forceinline__ long long node(int b, int w) const {
     if (kIndexed) {
       const int pos = w / tile;
@@ -74,42 +90,26 @@ struct WindowMap {
   }
 };
 
-// V (N, H*cv) row-major, the window operand, built once per node:
-//   aggregate-first (cv = C_in):  V[j, h*C_in + c]  = cd(p[j,h] x[j,c])
-//   transform-first (cv = C_out): Y[j, h*C_out + o] = sum_c cd(w[h,c,o]) cd(x[j,c])
-//                                 V[j, h*C_out + o] = cd(p[j,h] Y[j, h*C_out + o])
-// y (nullable) receives Y, which the transform-first backward needs.
-__global__ void window_operand_kernel(const float* __restrict__ p,
-                                      const float* __restrict__ x,
-                                      const float* __restrict__ w,
-                                      float* __restrict__ v,
-                                      float* __restrict__ y, int n, int heads,
-                                      int c_in, int c_out, int tf, int bf16) {
-  const int cv = tf ? c_out : c_in;
+// dst (n, ld) with dst[i, h*cv + c] = cd(scale[i, h] src[i, c]) and zeros in
+// the padding columns [heads*cv, ld): the aggregate-first window operand
+// V = cd(p x) and the transform-first row operand G = cd(r gout).
+__global__ void scaled_operand_kernel(const float* __restrict__ scale,
+                                      const float* __restrict__ src,
+                                      float* __restrict__ dst, int n,
+                                      int heads, int cv, int ld, int bf16) {
   const int kk = heads * cv;
-  const long long total = (long long)n * kk;
+  const long long total = (long long)n * ld;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < total; e += stride) {
-    const long long node = e / kk;
-    const int col = (int)(e - node * kk);
-    const int h = col / cv;
-    const int k = col - h * cv;
-    const float ph = p[node * heads + h];
-    float val;
-    if (tf) {
-      const float* xr = x + node * c_in;
-      const float* wc = w + (long long)h * c_in * c_out + k;
-      float acc = 0.f;
-      for (int c = 0; c < c_in; ++c) {
-        acc = fmaf(cd(wc[(long long)c * c_out], bf16), cd(xr[c], bf16), acc);
-      }
-      if (y != nullptr) y[e] = acc;
-      val = ph * acc;
-    } else {
-      val = ph * x[node * c_in + k];
+    const long long i = e / ld;
+    const int k = (int)(e - i * ld);
+    float val = 0.f;
+    if (k < kk) {
+      const int h = k / cv;
+      val = cd(scale[i * heads + h] * src[i * cv + (k - h * cv)], bf16);
     }
-    v[e] = cd(val, bf16);
+    dst[e] = val;
   }
 }
 
@@ -119,5 +119,41 @@ inline unsigned elementwise_blocks(long long total) {
   if (blocks > 65535LL * 8) blocks = 65535LL * 8;
   return (unsigned)(blocks > 0 ? blocks : 1);
 }
+
+inline int set_smem(const void* kernel, int bytes) {
+  if (bytes <= kDefaultSmem) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The parts of one entry point's launch sequence, timed with CUDA events
+// when the caller hands in `ms` (kMaxParts floats, one per launch in
+// order); with ms == nullptr it does nothing and nothing synchronises.
+struct PartTimer {
+  cudaStream_t stream;
+  float* ms;
+  int n = 0;
+  cudaEvent_t ev[kMaxParts + 1];
+
+  PartTimer(cudaStream_t s, float* out) : stream(s), ms(out) { mark(); }
+
+  void mark() {
+    if (ms == nullptr || n > kMaxParts) return;
+    cudaEventCreate(&ev[n]);
+    cudaEventRecord(ev[n], stream);
+    ++n;
+  }
+
+  // the launch error, or the first error of reading the events
+  int finish(int err) {
+    if (ms == nullptr) return err;
+    if (n > 0 && err == 0) err = (int)cudaEventSynchronize(ev[n - 1]);
+    for (int i = 0; i + 1 < n && err == 0; ++i) {
+      err = (int)cudaEventElapsedTime(&ms[i], ev[i], ev[i + 1]);
+    }
+    for (int i = 0; i < n; ++i) cudaEventDestroy(ev[i]);
+    return err;
+  }
+};
 
 }  // namespace

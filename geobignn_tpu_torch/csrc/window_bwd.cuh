@@ -6,7 +6,7 @@
 // the transform-first one (C_out < C_in), in either instantiation.
 //
 // Function.  With the forward's D, A = cd(M / max(D, 1e-12)) and window
-// operand V (banded_common.cuh), per row i and window column j (a set mask
+// operand V (window_fwd.cuh), per row i and window column j (a set mask
 // slot; K = H*cv, h(k) the head of column k):
 //   mdd[i,j] = D > 1e-12 ? -(M/D)/D : 0                (the clamp subgradient)
 //   G[i,k]   = cd(gy[i,k] r[i,h])  gy = cd(gout) cd(W_flat)^T     (#3)
@@ -32,408 +32,358 @@
 //
 // What bounds it on the H100: the bytes it must move (the int8 mask and
 // the (N, K) operands) against a little arithmetic — only ~12 of the
-// window slots of a row are set.  Design:
+// window slots of a row are set — and the per-node products, 0.1-0.8 GFLOP
+// each.  Design:
 //   - the TPU kernel holds a block's whole (T, W) D, mask and K in VMEM; a
 //     Hopper CTA cannot, and the backward reduces along both window axes
 //     (r̄ over a row's columns, p̄ and x̄ over a column's rows).  So two
 //     passes, each owning its output rows and writing them once, with no
-//     fold and no atomics:
-//       * the row pass (one warp per row i) scans the row's mask window
-//         32 slots at a time, and for each set slot recomputes D, A and
-//         mdd and accumulates z (in shared memory), the dot product for
-//         dbar, and r̄'s denominator part;
-//       * the column pass (one warp per node j) scans the mask column of
-//         j in every row block whose window holds it — the three
-//         neighbours for the band, the CSR transpose of blk_idx for
-//         block-sparse windows, where nothing but B bounds their number
-//         and a padded list entry is one more (empty) column to scan — and
-//         accumulates a and p̄'s denominator part the same way;
-//   - the per-node operands (V, Y, gy, G) are built once per node by
-//     elementwise launches, the x̄ of #4 by a per-node product, and W̄ as
-//     per-band-block partial products (32x32 tiles in shared memory) that
-//     the wrapper sums, as XLA sums the TPU kernel's W̄ slabs.
-// Every product is an f32 FMA over cd() operands.  Later work: mma/wgmma
-// tiles for W̄ and the (N, K) operands, and a coalesced column scan.
+//     fold and no atomics, both over the set slots only and through the
+//     same inner loop (window_walk.cuh):
+//       * the row pass (row_walk_kernel, one warp per row i) is the
+//         forward's walk with the row's G in registers beside z;
+//       * the column pass (col_walk_kernel, a CTA per 32 neighbouring
+//         nodes j) visits every row block whose window holds its nodes —
+//         the three neighbours for the band, the CSR transpose of blk_idx
+//         for block-sparse windows, where nothing but B bounds their number
+//         and a padded list entry is one more (empty) visit.  A visit's
+//         (T rows) x (32 columns) mask panel is copied into shared memory
+//         row by row, 32 contiguous bytes each, so the mask moves in whole
+//         sectors; each warp then scans its own four columns from there,
+//         one after the other.  The band's three panels are loaded once per
+//         CTA; transform-first closes every visit with its casts, so a
+//         node's slots come in up to three short batches, and that latency,
+//         not bytes, is what the pass costs (it is the largest part of a
+//         backward call); up to K = 640 the kernel is held to 128 registers
+//         so that two CTAs share an SM;
+//   - every product over the nodes' K columns — Y (#4), gy (#3), x̄ (#4),
+//     W̄ — is the tiled kernel of node_product.cuh; G of #4 and V of #3 are
+//     elementwise.  W̄ comes as per-row-block partials that the wrapper sums,
+//     as XLA sums the TPU kernel's W̄ slabs.
+// Every product is an f32 FMA over cd() operands.
 
 #pragma once
 
-#include "banded_common.cuh"
+#include "node_product.cuh"
+#include "window_walk.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // rows (row pass) or nodes (column pass) per CTA
-constexpr int kThreads = 32 * kWarps;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kColWarps = 8;
+constexpr int kColThreads = 32 * kColWarps;
+constexpr int kColNodes = 32;  // neighbouring nodes of one CTA: a mask sector
+constexpr int kColPerWarp = kColNodes / kColWarps;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// A = cd(m / max(D, 1e-12)) and the clamp subgradient mdd of one slot; D is
-// summed over the heads in the forward kernel's order.
-__device__ __forceinline__ void slot_weights(const float (&ri)[kMaxHeads],
-                                             const float (&pj)[kMaxHeads],
-                                             int heads, float mf, int bf16,
-                                             float& a, float& mdd) {
-  float d = 0.f;
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    if (h < heads) d = fmaf(ri[h], pj[h], d);
-  }
-  const float dinv = 1.f / fmaxf(d, 1e-12f);
-  const float minv = mf * dinv;
-  a = cd(minv, bf16);
-  mdd = d > 1e-12f ? -minv * dinv : 0.f;
-}
-
-__device__ __forceinline__ void load_heads(float (&dst)[kMaxHeads],
-                                           const float* src, int heads) {
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) dst[h] = h < heads ? src[h] : 0.f;
-}
-
-// G (and gy for aggregate-first), one thread per (node, column).
-__global__ void row_operand_kernel(const float* __restrict__ r,
-                                   const float* __restrict__ w,
-                                   const float* __restrict__ gout,
-                                   float* __restrict__ gy,
-                                   float* __restrict__ g, int n, int heads,
-                                   int cv, int c_out, int tf, int bf16) {
-  const int kk = heads * cv;
-  const long long total = (long long)n * kk;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long i = e / kk;
-    const int k = (int)(e - i * kk);
-    const int h = k / cv;
-    const float rh = r[i * heads + h];
-    const float* gi = gout + i * c_out;
-    if (tf) {
-      g[e] = cd(gi[k - h * cv] * rh, bf16);
-    } else {
-      const float* wk = w + (long long)k * c_out;  // W_flat row k
-      float acc = 0.f;
-      for (int o = 0; o < c_out; ++o) {
-        acc = fmaf(cd(wk[o], bf16), cd(gi[o], bf16), acc);
-      }
-      gy[e] = acc;
-      g[e] = cd(acc * rh, bf16);
-    }
-  }
-}
-
-// Row pass: r̄ (N, H), and for aggregate-first zr = cd(z r) (N, K).
-template <bool kIndexed>
-__global__ void __launch_bounds__(kThreads)
-bwd_row_kernel(const float* __restrict__ r, const float* __restrict__ p,
-               const float* __restrict__ v, const float* __restrict__ g,
-               const float* __restrict__ gz, const int8_t* __restrict__ m,
-               float* __restrict__ rbar, float* __restrict__ zr,
-               WindowMap<kIndexed> map, int n, int heads, int cv, int tf,
-               int bf16) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long i = (long long)blockIdx.x * kWarps + warp;
-  if (i >= n) return;
-  const int kk = heads * cv;
-  const int win = map.width();
-  float* z = smem + warp * kk;
-  for (int k = lane; k < kk; k += 32) z[k] = 0.f;
-
-  float ri[kMaxHeads], rd[kMaxHeads], pj[kMaxHeads];
-  load_heads(ri, r + i * heads, heads);
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) rd[h] = 0.f;
-
-  const int blk = (int)(i / map.tile);
-  const int8_t* mrow = m + i * win;
-  const float* gi = g + i * kk;
-  for (int w0 = 0; w0 < win; w0 += 32) {
-    const int mk = mrow[w0 + lane];
-    unsigned set = __ballot_sync(kFull, mk != 0);
-    if (set == 0) continue;
-    const long long j0 = map.node(blk, w0);  // the node of slot w0
-    while (set) {  // warp-uniform: one set slot at a time
-      const int l = __ffs(set) - 1;
-      set &= set - 1;
-      const float mf = (float)__shfl_sync(kFull, mk, l);
-      const long long j = j0 + l;
-      if (j < 0 || j >= n) continue;  // zero rows outside [0, N)
-      load_heads(pj, p + j * heads, heads);
-      float a, mdd;
-      slot_weights(ri, pj, heads, mf, bf16, a, mdd);
-      const float* vj = v + j * kk;
-      float kd = 0.f;
-      for (int k = lane; k < kk; k += 32) {
-        const float vv = vj[k];
-        kd = fmaf(gi[k], vv, kd);
-        z[k] = fmaf(a, vv, z[k]);
-      }
-      const float dbar = mdd * warp_sum(kd);
-#pragma unroll
-      for (int h = 0; h < kMaxHeads; ++h) rd[h] = fmaf(dbar, pj[h], rd[h]);
-    }
+// A batch of the column pass: ring entries are (row i << 8 | mask byte).
+template <int kChunks>
+__device__ __forceinline__ void col_batch(WalkState<kChunks, true>& s,
+                                          const int* ring, int head, int cnt,
+                                          const float* r, const float* g,
+                                          int ldk, int heads, int lane,
+                                          int bf16) {
+  int other = -1;
+  float mf = 0.f;
+  if (lane < cnt) {
+    const int ent = ring[(head + lane) & (kRing - 1)];
+    mf = (float)(int8_t)(ent & 0xff);
+    other = ent >> 8;
   }
   __syncwarp();
-
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    if (h < heads) {
-      float s = 0.f;
-      for (int c = lane; c < cv; c += 32) {
-        const int k = h * cv + c;
-        const float zk = z[k];
-        const float gzk = tf ? gz[i * cv + c] : gz[i * kk + k];
-        s += cd(gzk * zk, bf16);
-        if (!tf) zr[i * kk + k] = cd(zk * ri[h], bf16);
-      }
-      s = warp_sum(s);
-      if (lane == 0) rbar[i * heads + h] = s + rd[h];
-    }
-  }
+  walk_batch<kChunks, true>(s, other, mf, r, g, ldk, heads, cnt, lane, bf16);
 }
 
-// Column pass: p̄ (N, H), and x̄ (N, C_in) for aggregate-first or
-// yb (N, K) for transform-first.
-template <bool kIndexed>
-__global__ void __launch_bounds__(kThreads)
-bwd_col_kernel(const float* __restrict__ r, const float* __restrict__ p,
-               const float* __restrict__ x, const float* __restrict__ v,
-               const float* __restrict__ g, const float* __restrict__ y,
-               const int8_t* __restrict__ m, float* __restrict__ pbar,
-               float* __restrict__ xbar, float* __restrict__ yb,
-               WindowMap<kIndexed> map, int n, int heads, int c_in, int cv,
-               int tf, int bf16) {
-  extern __shared__ float smem[];
+// Column pass: p̄ (N, H), and x̄ (N, C_in) for aggregate-first or yb (N, ldk)
+// for transform-first.  v, g, y, yb are (n, ldk).  Dynamic shared memory:
+// kColWarps * (tf ? 2 : 1) * ldk floats (a[j,:] and, transform-first, the
+// sum over the visits of yb), then vis_cap mask panels of tile * 32 bytes.
+template <bool kIndexed, int kChunks>
+__global__ void __launch_bounds__(kColThreads, kChunks <= 5 ? 2 : 1)
+col_walk_kernel(const float* __restrict__ r, const float* __restrict__ p,
+                const float* __restrict__ x, const float* __restrict__ v,
+                const float* __restrict__ g, const float* __restrict__ y,
+                const int8_t* __restrict__ m, float* __restrict__ pbar,
+                float* __restrict__ xbar, float* __restrict__ yb,
+                WindowMap<kIndexed> map, int n, int heads, int c_in, int cv,
+                int ldk, int tf, int bf16, int vis_cap) {
+  extern __shared__ float4 smem4[];
+  __shared__ int ring_s[kColWarps][kRing];
+  __shared__ float heads_s[kColWarps][kMaxHeads];  // p[j, :], indexed by k / cv
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long j = (long long)blockIdx.x * kWarps + warp;
-  if (j >= n) return;
   const int kk = heads * cv;
   const int tile = map.tile;
   const int win = map.width();
-  float* acc = smem + (long long)warp * kk * (tf ? 2 : 1);  // a[j, :]
-  float* ybs = acc + kk;  // transform-first: sum over row blocks of yb
-  for (int k = lane; k < kk; k += 32) {
-    acc[k] = 0.f;
-    if (tf) ybs[k] = 0.f;
+  const int per_warp = (tf ? 2 : 1) * ldk;
+  float* accs = reinterpret_cast<float*>(smem4) + warp * per_warp;  // a[j, :]
+  float* ybs = accs + ldk;  // transform-first: sum over the visits of yb
+  int8_t* panels = reinterpret_cast<int8_t*>(
+      reinterpret_cast<float*>(smem4) + kColWarps * per_warp);
+  int* ring = ring_s[warp];
+
+  const long long j0 = (long long)blockIdx.x * kColNodes;
+  const int bj = (int)(j0 / tile);
+  const int tj0 = (int)(j0 - (long long)bj * tile);
+  const long long q_begin = map.visits_begin(bj);
+  const long long q_end = map.visits_end(bj);
+  const bool one_load = q_end - q_begin <= vis_cap;  // the panels stay
+  // the heads of this lane's four columns of each chunk, one byte each
+  // (worked out once: a division per column and visit would cost more than
+  // the visit's arithmetic)
+  unsigned head_of[kChunks];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    head_of[c] = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = c * kChunkCols + lane * 4 + e;
+      head_of[c] |= (unsigned)(k < kk ? k / cv : 0) << (8 * e);
+    }
   }
 
-  float pj[kMaxHeads], pd[kMaxHeads], pdir[kMaxHeads], ri[kMaxHeads];
-  load_heads(pj, p + j * heads, heads);
+  for (int cc = 0; cc < kColPerWarp; ++cc) {
+    const int col = warp * kColPerWarp + cc;
+    const long long j = j0 + col;
+    WalkState<kChunks, true> s;
+    walk_init<kChunks, true>(s, p + j * heads, v + j * ldk, heads, ldk, lane);
+    float pdir = 0.f;  // lane h holds the direct part of p̄[j, h]
+    if (tf) {  // ybs holds this lane's columns
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    pd[h] = 0.f;
-    pdir[h] = 0.f;
-  }
-  const float* vj = v + j * kk;
-  const int bj = (int)(j / tile);
-  const int tj = (int)(j - (long long)bj * tile);
-  const long long q_end = map.visits_end(bj);
-  for (long long q = map.visits_begin(bj); q < q_end; ++q) {
-    int bi, pos;
-    if (!map.visit(q, bj, bi, pos)) continue;
-    const long long wcol = (long long)pos * tile + tj;  // j's window slot
-    for (int t0 = 0; t0 < tile; t0 += 32) {
-      const long long row0 = (long long)bi * tile + t0;
-      const int mk = m[(row0 + lane) * win + wcol];
-      unsigned set = __ballot_sync(kFull, mk != 0);
-      while (set) {
-        const int l = __ffs(set) - 1;
-        set &= set - 1;
-        const float mf = (float)__shfl_sync(kFull, mk, l);
-        const long long i = row0 + l;
-        load_heads(ri, r + i * heads, heads);
-        float a, mdd;
-        slot_weights(ri, pj, heads, mf, bf16, a, mdd);
-        const float* gi = g + i * kk;
-        float kd = 0.f;
-        for (int k = lane; k < kk; k += 32) {
-          const float gv = gi[k];
-          kd = fmaf(gv, vj[k], kd);
-          acc[k] = fmaf(a, gv, acc[k]);
-        }
-        const float dbar = mdd * warp_sum(kd);
-#pragma unroll
-        for (int h = 0; h < kMaxHeads; ++h) pd[h] = fmaf(dbar, ri[h], pd[h]);
+      for (int c = 0; c < kChunks; ++c) {
+        const int k0 = c * kChunkCols + lane * 4;
+        if (k0 < ldk) *reinterpret_cast<float4*>(ybs + k0) = zero4();
       }
     }
-    if (tf) {  // this visit's slab, cast as _bwd_body_tf casts it
-      __syncwarp();
+    if (lane < kMaxHeads) heads_s[warp][lane] = lane < heads ? p[j * heads + lane] : 0.f;
+    __syncwarp();
+    int head = 0, tail = 0;
+
+    for (long long q0 = q_begin; q0 < q_end; q0 += vis_cap) {
+      const int visits = (int)min((long long)vis_cap, q_end - q0);
+      if (cc == 0 || !one_load) {
+        __syncthreads();  // the panels' readers are done
+        for (int u = 0; u < visits; ++u) {
+          int bi, pos;
+          if (!map.visit(q0 + u, bj, bi, pos)) continue;
+          const int8_t* src =
+              m + ((long long)bi * tile) * win + (long long)pos * tile + tj0;
+          int8_t* dst = panels + (long long)u * tile * kColNodes;
+          for (int e = threadIdx.x; e < tile * 2; e += kColThreads) {
+            const int row = e >> 1;
+            const int half = (e & 1) * 16;
+            *reinterpret_cast<int4*>(dst + row * kColNodes + half) = __ldg(
+                reinterpret_cast<const int4*>(src + (long long)row * win + half));
+          }
+        }
+        __syncthreads();
+      }
+      for (int u = 0; u < visits; ++u) {
+        int bi, pos;
+        if (!map.visit(q0 + u, bj, bi, pos)) continue;
+        const int8_t* panel = panels + (long long)u * tile * kColNodes + col;
+        const int tail0 = tail;
+        for (int t0 = 0; t0 < tile; t0 += 32) {
+          const int byte = panel[(t0 + lane) * kColNodes] & 0xff;
+          tail = ring_push(ring, tail, byte != 0,
+                           ((bi * tile + t0 + lane) << 8) | byte, lane);
+          if (tail - head >= 32) {
+            col_batch<kChunks>(s, ring, head, 32, r, g, ldk, heads, lane, bf16);
+            head += 32;
+          }
+        }
+        // transform-first: this visit's slab, cast as _bwd_body_tf casts it
+        // (a visit without a set slot adds cd(0) = 0)
+        if (tf && tail != tail0) {
+          if (tail > head) {
+            col_batch<kChunks>(s, ring, head, tail - head, r, g, ldk, heads,
+                               lane, bf16);
+            head = tail;
+          }
+#pragma unroll
+          for (int c = 0; c < kChunks; ++c) {
+            const int k0 = c * kChunkCols + lane * 4;
+            if (k0 < ldk) {
+              const float ak[4] = {s.acc[c].x, s.acc[c].y, s.acc[c].z, s.acc[c].w};
+              const float4 yrow = __ldg(reinterpret_cast<const float4*>(y + j * ldk + k0));
+              const float yk[4] = {yrow.x, yrow.y, yrow.z, yrow.w};
+              const float4 old = *reinterpret_cast<const float4*>(ybs + k0);
+              float ys[4] = {old.x, old.y, old.z, old.w};
+              float ya[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                ya[e] = 0.f;
+                if (k0 + e < kk) {
+                  ya[e] = cd(yk[e] * ak[e], bf16);
+                  ys[e] += cd(heads_s[warp][(head_of[c] >> (8 * e)) & 0xff] * ak[e], bf16);
+                }
+              }
+              *reinterpret_cast<float4*>(accs + k0) = make_float4(ya[0], ya[1], ya[2], ya[3]);
+              *reinterpret_cast<float4*>(ybs + k0) = make_float4(ys[0], ys[1], ys[2], ys[3]);
+            }
+            s.acc[c] = zero4();
+          }
+          __syncwarp();
+          pdir += head_sum_of_lane(accs, heads, cv, lane);
+          __syncwarp();
+        }
+      }
+    }
+
+    if (tf) {
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int k0 = c * kChunkCols + lane * 4;
+        if (k0 < ldk) {
+          *reinterpret_cast<float4*>(yb + j * ldk + k0) =
+              *reinterpret_cast<const float4*>(ybs + k0);
+        }
+      }
+    } else {
+      if (tail > head) {
+        col_batch<kChunks>(s, ring, head, tail - head, r, g, ldk, heads, lane,
+                           bf16);
+      }
+      spill_acc<kChunks>(s.acc, accs, ldk, lane);
+      for (int c = lane; c < c_in; c += 32) {
+        float sum = 0.f;
+#pragma unroll
+        for (int h = 0; h < kMaxHeads; ++h) {
+          if (h < heads) sum = fmaf(s.hown[h], accs[h * c_in + c], sum);
+        }
+        xbar[j * c_in + c] = sum;
+      }
+      float part[kMaxHeads];
+#pragma unroll
+      for (int h = 0; h < kMaxHeads; ++h) part[h] = 0.f;
+      for (int c = lane; c < c_in; c += 32) {
+        const float xv = x[j * c_in + c];
+#pragma unroll
+        for (int h = 0; h < kMaxHeads; ++h) {
+          if (h < heads) part[h] = fmaf(accs[h * c_in + c], xv, part[h]);
+        }
+      }
 #pragma unroll
       for (int h = 0; h < kMaxHeads; ++h) {
         if (h < heads) {
-          float s = 0.f;
-          for (int o = lane; o < cv; o += 32) {
-            const int k = h * cv + o;
-            const float ak = acc[k];
-            s += cd(y[j * kk + k] * ak, bf16);
-            ybs[k] += cd(pj[h] * ak, bf16);
-            acc[k] = 0.f;
-          }
-          pdir[h] += warp_sum(s);
+          const float sum = warp_sum(part[h]);
+          if (lane == h) pdir = sum;
         }
       }
-      __syncwarp();
     }
-  }
-  __syncwarp();
-
-  if (tf) {
-    for (int k = lane; k < kk; k += 32) yb[j * kk + k] = ybs[k];
-  } else {
-    for (int c = lane; c < c_in; c += 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int h = 0; h < kMaxHeads; ++h) {
-        if (h < heads) s = fmaf(pj[h], acc[h * c_in + c], s);
-      }
-      xbar[j * c_in + c] = s;
-    }
+    float den = 0.f;  // lane h: the denominator part of p̄[j, h]
 #pragma unroll
     for (int h = 0; h < kMaxHeads; ++h) {
       if (h < heads) {
-        float s = 0.f;
-        for (int c = lane; c < c_in; c += 32) {
-          s = fmaf(acc[h * c_in + c], x[j * c_in + c], s);
-        }
-        pdir[h] = warp_sum(s);
+        const float sum = warp_sum(s.hacc[h]);
+        if (lane == h) den = sum;
       }
     }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) {
-      if (h < heads) pbar[j * heads + h] = pdir[h] + pd[h];
-    }
+    if (lane < heads) pbar[j * heads + lane] = pdir + den;
+    __syncwarp();  // accs and ybs are written again for the next node
   }
 }
 
-// Transform-first x̄[j,c] = sum_{h,o} yb[j, h*C_out + o] cd(w[h,c,o]).
-__global__ void xbar_tf_kernel(const float* __restrict__ yb,
-                               const float* __restrict__ w,
-                               float* __restrict__ xbar, int n, int heads,
-                               int c_in, int c_out, int bf16) {
-  const long long total = (long long)n * c_in;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long j = e / c_in;
-    const int c = (int)(e - j * c_in);
-    const float* ybj = yb + j * heads * c_out;
-    float acc = 0.f;
-    for (int h = 0; h < heads; ++h) {
-      const float* wr = w + ((long long)h * c_in + c) * c_out;
-      for (int o = 0; o < c_out; ++o) {
-        acc = fmaf(ybj[h * c_out + o], cd(wr[o], bf16), acc);
-      }
-    }
-    xbar[e] = acc;
-  }
+// mask panels the column pass keeps in shared memory at a time: all three
+// of the band when they fit in 96 KB, else (and for block-sparse windows,
+// whose column blocks have about K visits each) as many as 80 KB hold
+inline int visit_capacity(bool indexed, int tile) {
+  const int panel = tile * kColNodes;
+  if (!indexed && 3 * panel <= 96 * 1024) return 3;
+  const int cap = 80 * 1024 / panel;
+  return cap > 0 ? cap : 1;
 }
 
-// W̄ partials: part[s, k, c] = sum over the rows i of band block s of
-// lhs[i, k] * cd(rhs[i, c]); 32x32 output tiles, rows staged 32 at a time.
-__global__ void __launch_bounds__(256)
-wbar_partial_kernel(const float* __restrict__ lhs,
-                    const float* __restrict__ rhs, float* __restrict__ part,
-                    int kl, int cr, int rows, int bf16) {
-  __shared__ float l_s[32][33];
-  __shared__ float r_s[32][33];
-  const int k0 = blockIdx.x * 32;
-  const int c0 = blockIdx.y * 32;
-  const long long s = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 5;  // output rows ty + 8q of the tile
-  const int tx = tid & 31;  // output column
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t0 = 0; t0 < rows; t0 += 32) {
-    for (int e = tid; e < 32 * 32; e += 256) {
-      const int row = e >> 5;
-      const int col = e & 31;
-      const long long i = s * rows + t0 + row;
-      const bool in = t0 + row < rows;
-      l_s[row][col] = (in && k0 + col < kl) ? lhs[i * kl + k0 + col] : 0.f;
-      r_s[row][col] =
-          (in && c0 + col < cr) ? cd(rhs[i * cr + c0 + col], bf16) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int row = 0; row < 32; ++row) {
-      const float rv = r_s[row][tx];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = fmaf(l_s[row][ty + 8 * q], rv, acc[q]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int k = k0 + ty + 8 * q;
-    const int c = c0 + tx;
-    if (k < kl && c < cr) part[(s * kl + k) * cr + c] = acc[q];
-  }
+template <bool kIndexed>
+int launch_col_walk(const float* r, const float* p, const float* x,
+                    const float* v, const float* g, const float* y,
+                    const int8_t* m, float* pbar, float* xbar, float* yb,
+                    WindowMap<kIndexed> map, int n, int heads, int c_in,
+                    int cv, int ldk, int tf, int bf16, cudaStream_t s) {
+  return dispatch_chunks(ldk, [&](auto chunks) {
+    const int vis_cap = visit_capacity(kIndexed, map.tile);
+    const int smem = kColWarps * (tf ? 2 : 1) * ldk * (int)sizeof(float) +
+                     vis_cap * map.tile * kColNodes;
+    auto kernel = col_walk_kernel<kIndexed, decltype(chunks)::value>;
+    if (int err = set_smem((const void*)kernel, smem)) return err;
+    kernel<<<n / kColNodes, kColThreads, smem, s>>>(
+        r, p, x, v, g, y, m, pbar, xbar, yb, map, n, heads, c_in, cv, ldk, tf,
+        bf16, vis_cap);
+    return (int)cudaGetLastError();
+  });
 }
 
-int set_smem(const void* kernel, int bytes) {
-  if (bytes <= kDefaultSmem) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// v, g, y or gy (the other may be null) and wl are (n, heads*cv) scratch
-// with cv = tf ? c_out : c_in; wpart is (n/tile, heads*cv, tf ? c_in :
-// c_out); outputs rbar, pbar (n, heads), xbar (n, c_in).  Returns the
-// cudaGetLastError() code after the launches (0 on success).
+// v, g, y or gy (the other may be null) and wl are (n, ldk) scratch with
+// ldk = heads*cv rounded up to a multiple of 4, cv = tf ? c_out : c_in;
+// wpart is (n/tile, heads*cv, tf ? c_in : c_out); outputs rbar, pbar
+// (n, heads), xbar (n, c_in).  part_ms (nullable, kMaxParts floats) receives
+// the milliseconds of each launch in order and makes the call synchronise.
+// Returns the cudaGetLastError() code after the launches (0 on success).
 template <bool kIndexed>
 int launch_window_bwd(const float* r, const float* p, const float* x,
                       const float* w, const int8_t* m, const float* gout,
                       float* v, float* g, float* y, float* gy, float* wl,
                       float* wpart, float* rbar, float* pbar, float* xbar,
                       WindowMap<kIndexed> map, int n, int heads, int c_in,
-                      int c_out, int tf, int bf16, void* stream) {
+                      int c_out, int ldk, int tf, int bf16, void* stream,
+                      float* part_ms) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cv = tf ? c_out : c_in;
   const int kk = heads * cv;
-  const long long nk = (long long)n * kk;
+  PartTimer timer(s, part_ms);
   int err;
 
-  window_operand_kernel<<<elementwise_blocks(nk), 256, 0, s>>>(
-      p, x, w, v, tf ? y : nullptr, n, heads, c_in, c_out, tf, bf16);
-  if ((err = (int)cudaGetLastError())) return err;
-  row_operand_kernel<<<elementwise_blocks(nk), 256, 0, s>>>(
-      r, w, gout, gy, g, n, heads, cv, c_out, tf, bf16);
-  if ((err = (int)cudaGetLastError())) return err;
-
-  const int row_smem = kWarps * kk * (int)sizeof(float);
-  const int col_smem = row_smem * (tf ? 2 : 1);
-  if ((err = set_smem((const void*)bwd_row_kernel<kIndexed>, row_smem)))
-    return err;
-  if ((err = set_smem((const void*)bwd_col_kernel<kIndexed>, col_smem)))
-    return err;
-  bwd_row_kernel<kIndexed><<<n / kWarps, kThreads, row_smem, s>>>(
-      r, p, v, g, tf ? gout : gy, m, rbar, tf ? nullptr : wl, map, n, heads,
-      cv, tf, bf16);
-  if ((err = (int)cudaGetLastError())) return err;
-  bwd_col_kernel<kIndexed><<<n / kWarps, kThreads, col_smem, s>>>(
-      r, p, x, v, g, y, m, pbar, xbar, tf ? wl : nullptr, map, n, heads, c_in,
-      cv, tf, bf16);
-  if ((err = (int)cudaGetLastError())) return err;
-
-  const int cr = tf ? c_in : c_out;
+  // the window operand V (and Y), then the row operand G (and gy)
   if (tf) {
-    xbar_tf_kernel<<<elementwise_blocks((long long)n * c_in), 256, 0, s>>>(
-        wl, w, xbar, n, heads, c_in, c_out, bf16);
-    if ((err = (int)cudaGetLastError())) return err;
+    err = launch_tf_operand(p, x, w, v, y, n, heads, c_in, c_out, ldk, bf16, s);
+  } else {
+    scaled_operand_kernel<<<elementwise_blocks((long long)n * ldk), 256, 0,
+                            s>>>(p, x, v, n, heads, cv, ldk, bf16);
+    err = (int)cudaGetLastError();
   }
-  const dim3 grid((kk + 31) / 32, (cr + 31) / 32, n / map.tile);
-  wbar_partial_kernel<<<grid, 256, 0, s>>>(wl, tf ? x : gout, wpart, kk, cr,
-                                           map.tile, bf16);
-  return (int)cudaGetLastError();
+  if (err) return timer.finish(err);
+  timer.mark();
+  if (tf) {
+    scaled_operand_kernel<<<elementwise_blocks((long long)n * ldk), 256, 0,
+                            s>>>(r, gout, g, n, heads, cv, ldk, bf16);
+    err = (int)cudaGetLastError();
+  } else {  // gy = cd(gout) cd(W_flat)^T, G = cd(gy r)
+    ProductArgs q{};
+    q.a = gout; q.b = w; q.c = g; q.raw = gy; q.scale = r;
+    q.m = n; q.n = kk; q.k = c_out;
+    q.lda = c_out; q.ldb = c_out; q.ldc = ldk;
+    q.cast_a = 1; q.cast_b = 1; q.bf16 = bf16;
+    q.heads = heads; q.cv = cv;
+    err = launch_node_product<false, true, false, true>(q, 1, s);
+  }
+  if (err) return timer.finish(err);
+  timer.mark();
+
+  err = launch_row_walk<kIndexed, true>(r, p, v, g, tf ? gout : gy, m, nullptr,
+                                        rbar, tf ? nullptr : wl, map, n, heads,
+                                        cv, ldk, tf, bf16, s);
+  if (err) return timer.finish(err);
+  timer.mark();
+  err = launch_col_walk<kIndexed>(r, p, x, v, g, y, m, pbar, xbar,
+                                  tf ? wl : nullptr, map, n, heads, c_in, cv,
+                                  ldk, tf, bf16, s);
+  if (err) return timer.finish(err);
+  timer.mark();
+
+  if (tf) {  // x̄ = yb cd(W2)^T
+    ProductArgs q{};
+    q.a = wl; q.b = w; q.c = xbar;
+    q.m = n; q.n = c_in; q.k = kk;
+    q.lda = ldk; q.ldc = c_in;
+    q.cast_a = 0; q.cast_b = 1; q.bf16 = bf16;
+    q.c_in = c_in; q.c_out = c_out;
+    err = launch_node_product<false, true, true, false>(q, 1, s);
+    if (err) return timer.finish(err);
+    timer.mark();
+  }
+  err = launch_wbar_partials(wl, tf ? x : gout, wpart, n / map.tile, map.tile,
+                             kk, ldk, tf ? c_in : c_out, bf16, s);
+  if (err) return timer.finish(err);
+  timer.mark();
+  return timer.finish(0);
 }
 
 }  // namespace

@@ -21,7 +21,11 @@ library under build/geobignn_tpu_torch/ at first use (one nvcc per source,
 started together), from the repo's sources only, and loaded through ctypes.
 Each schedule counts its forward and backward launches in `LAUNCHES`, the
 block-sparse ones under `bs_` names, the nearest-distance kernel under
-`nearest`.
+`nearest`.  One launch of a wrapper is a short sequence of kernels (the
+per-node operand or product, the walk over the set mask slots, the
+products that close it: csrc/window_fwd.cuh, window_bwd.cuh); handed a dict
+as `parts`, a wrapper fills it with each kernel's milliseconds (CUDA
+events inside the library), under the names of `FWD_PARTS` / `BWD_PARTS`.
 
 The plain versions take the window as a pair of functions (`_BandWindow`
 here, ops/blocksparse.py's over `blk_idx`): the gather of node rows into
@@ -32,6 +36,7 @@ written once for both.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -49,8 +54,7 @@ SOURCES = {"fwd": os.path.join(_CSRC, "banded_fwd.cu"),
            "bs_fwd": os.path.join(_CSRC, "blocksparse_fwd.cu"),
            "bs_bwd": os.path.join(_CSRC, "blocksparse_bwd.cu"),
            "nearest": os.path.join(_CSRC, "nearest.cu")}
-HEADERS = tuple(os.path.join(_CSRC, h) for h in (
-    "banded_common.cuh", "window_fwd.cuh", "window_bwd.cuh"))
+HEADERS = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "geobignn_tpu_torch")
 LIBRARIES = {k: os.path.join(
     BUILD_DIR, "lib" + os.path.splitext(os.path.basename(src))[0] + ".so")
@@ -64,6 +68,16 @@ LAUNCHES = {"aggregate_first": 0, "transform_first": 0,
             "bs_aggregate_first": 0, "bs_transform_first": 0,
             "bs_aggregate_first_bwd": 0, "bs_transform_first_bwd": 0,
             "nearest": 0}
+
+# the kernels of one launch sequence, in order, by schedule (False:
+# aggregate-first, True: transform-first)
+FWD_PARTS = {False: ("operand", "window kernel", "output product"),
+             True: ("operand product", "window kernel")}
+BWD_PARTS = {False: ("operand", "gy product", "row pass", "column pass",
+                     "wbar product"),
+             True: ("operand product", "row operand", "row pass", "column pass",
+                    "xbar product", "wbar product")}
+_MAX_PARTS = 8  # kMaxParts of csrc/banded_common.cuh
 
 _libs: dict = {}
 BUILD_LOG = ""  # nvcc/ptxas output of the last build (registers, smem)
@@ -123,28 +137,64 @@ def _load():
     if not _libs:
         build()
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        # pointers, ints, then the stream and the parts' milliseconds
         fwd = ctypes.CDLL(LIBRARIES["fwd"])
-        fwd.gbn_banded_aggregate_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        fwd.gbn_banded_aggregate_fwd.argtypes = [vp] * 8 + [ci] * 8 + [vp] * 2
         fwd.gbn_banded_aggregate_fwd.restype = ci
         bwd = ctypes.CDLL(LIBRARIES["bwd"])
-        bwd.gbn_banded_aggregate_bwd.argtypes = [vp] * 15 + [ci] * 7 + [vp]
+        bwd.gbn_banded_aggregate_bwd.argtypes = [vp] * 15 + [ci] * 8 + [vp] * 2
         bwd.gbn_banded_aggregate_bwd.restype = ci
         bs_fwd = ctypes.CDLL(LIBRARIES["bs_fwd"])
-        bs_fwd.gbn_bs_aggregate_fwd.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        bs_fwd.gbn_bs_aggregate_fwd.argtypes = [vp] * 9 + [ci] * 9 + [vp] * 2
         bs_fwd.gbn_bs_aggregate_fwd.restype = ci
         bs_bwd = ctypes.CDLL(LIBRARIES["bs_bwd"])
-        bs_bwd.gbn_bs_aggregate_bwd.argtypes = [vp] * 18 + [ci] * 8 + [vp]
+        bs_bwd.gbn_bs_aggregate_bwd.argtypes = [vp] * 18 + [ci] * 9 + [vp] * 2
         bs_bwd.gbn_bs_aggregate_bwd.restype = ci
-        limits = ("rows_per_cta", "max_heads", "max_out")
-        limits_bwd = ("bwd_nodes_per_cta", "bwd_max_heads", "bwd_max_width")
-        for lib, prefix, names in ((fwd, "gbn_banded_", limits),
-                                   (bwd, "gbn_banded_", limits_bwd),
-                                   (bs_fwd, "gbn_bs_", limits),
-                                   (bs_bwd, "gbn_bs_", limits_bwd)):
-            for name in names:
+        for lib, prefix in ((fwd, "gbn_banded_"), (bwd, "gbn_banded_bwd_"),
+                            (bs_fwd, "gbn_bs_"), (bs_bwd, "gbn_bs_bwd_")):
+            for name in _LIMITS:
                 getattr(lib, prefix + name).restype = ci
         _libs.update(fwd=fwd, bwd=bwd, bs_fwd=bs_fwd, bs_bwd=bs_bwd)
     return _libs
+
+
+_LIMITS = ("tile_multiple", "max_heads", "max_width")
+_limits: dict = {}  # by library prefix, read once
+
+
+def _fit(lib, prefix, m, heads, cv) -> int:
+    """Raise unless the library's kernels take this mask, head count and
+    strip width cv (C_in or C_out); returns ldk, the row stride of the
+    (N, heads*cv) scratch operands: heads*cv rounded up to a multiple of 4,
+    so that a lane's 16-byte loads are aligned."""
+    if prefix not in _limits:
+        _limits[prefix] = tuple(getattr(lib, prefix + name)() for name in _LIMITS)
+    mult, max_heads, max_width = _limits[prefix]
+    if m.shape[1] % mult:
+        raise ValueError(f"tile {m.shape[1]} is not a multiple of {mult}")
+    if heads > max_heads or heads * cv > max_width:
+        raise ValueError(f"heads {heads} / width {heads} x {cv} exceed the kernels' "
+                         f"{max_heads} / {max_width}")
+    if m.data_ptr() % 16:
+        raise ValueError("the mask must be 16-byte aligned")
+    return -(-heads * cv // 4) * 4
+
+
+class _Parts:
+    """The optional per-kernel milliseconds of one launch sequence: a float
+    buffer for the library when the caller handed in a dict, else NULL."""
+
+    def __init__(self, parts):
+        self.parts = parts
+        self.buf = None if parts is None else (ctypes.c_float * _MAX_PARTS)()
+
+    @property
+    def ptr(self):
+        return None if self.buf is None else ctypes.cast(self.buf, ctypes.c_void_p)
+
+    def fill(self, names):
+        if self.parts is not None:
+            self.parts.update(zip(names, self.buf))
 
 
 def use_transform_first(c_in: int, c_out: int) -> bool:
@@ -371,7 +421,8 @@ def _check(r, p, x, w, m, compute_dtype, gout=None, blk_idx=None):
         raise ValueError(f"gout {tuple(gout.shape)} is not ({n}, {w.shape[2]})")
 
 
-def _launch(r, p, x, w, m, compute_dtype) -> torch.Tensor:
+def _launch(r, p, x, w, m, compute_dtype, parts=None) -> torch.Tensor:
+    """TPU kernels #1/#2 on Hopper: (N, C_out) f32."""
     lib = _load()["fwd"]
     _check(r, p, x, w, m, compute_dtype)
     tile = m.shape[1]
@@ -379,29 +430,29 @@ def _launch(r, p, x, w, m, compute_dtype) -> torch.Tensor:
     heads = r.shape[1]
     c_out = w.shape[2]
     dev = x.device
-    if tile % lib.gbn_banded_rows_per_cta():
-        raise ValueError(f"tile {tile} is not a multiple of "
-                         f"{lib.gbn_banded_rows_per_cta()}")
-    if heads > lib.gbn_banded_max_heads() or c_out > lib.gbn_banded_max_out():
-        raise ValueError(f"heads {heads} / c_out {c_out} exceed the kernel's "
-                         f"{lib.gbn_banded_max_heads()} / {lib.gbn_banded_max_out()}")
     tf = use_transform_first(c_in, c_out)
-    v = torch.empty((n, heads * (c_out if tf else c_in)), dtype=torch.float32, device=dev)
-    out = torch.empty((n, c_out), dtype=torch.float32, device=dev)
+    ldk = _fit(lib, "gbn_banded_", m, heads, c_out if tf else c_in)
+    f32 = dict(dtype=torch.float32, device=dev)
+    v = torch.empty((n, ldk), **f32)
+    zr = None if tf else torch.empty((n, ldk), **f32)
+    out = torch.empty((n, c_out), **f32)
+    ms = _Parts(parts)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gbn_banded_aggregate_fwd(
             r.data_ptr(), p.data_ptr(), x.data_ptr(), w.data_ptr(), m.data_ptr(),
-            v.data_ptr(), out.data_ptr(), n, tile, heads, c_in, c_out,
-            int(tf), int(compute_dtype == torch.bfloat16), stream,
+            v.data_ptr(), None if tf else zr.data_ptr(), out.data_ptr(), n, tile,
+            heads, c_in, c_out, ldk, int(tf), int(compute_dtype == torch.bfloat16),
+            stream, ms.ptr,
         )
     if rc != 0:
         raise RuntimeError(f"banded aggregate kernel launch failed: CUDA error {rc}")
     LAUNCHES["transform_first" if tf else "aggregate_first"] += 1
+    ms.fill(FWD_PARTS[tf])
     return out
 
 
-def _launch_bwd(r, p, x, w, m, gout, compute_dtype):
+def _launch_bwd(r, p, x, w, m, gout, compute_dtype, parts=None):
     """TPU kernels #3/#4 on Hopper: (r̄, p̄, x̄, W̄) in f32."""
     lib = _load()["bwd"]
     _check(r, p, x, w, m, compute_dtype, gout)
@@ -412,31 +463,28 @@ def _launch_bwd(r, p, x, w, m, gout, compute_dtype):
     dev = x.device
     tf = use_transform_first(c_in, c_out)
     cv = c_out if tf else c_in
-    if tile % 32 or n % lib.gbn_banded_bwd_nodes_per_cta():
-        raise ValueError(f"tile {tile} / n {n} do not fit the backward kernel")
-    if heads > lib.gbn_banded_bwd_max_heads() or cv > lib.gbn_banded_bwd_max_width():
-        raise ValueError(f"heads {heads} / width {cv} exceed the backward kernel's "
-                         f"{lib.gbn_banded_bwd_max_heads()} / "
-                         f"{lib.gbn_banded_bwd_max_width()}")
+    ldk = _fit(lib, "gbn_banded_bwd_", m, heads, cv)
     f32 = dict(dtype=torch.float32, device=dev)
-    v, g, y_or_gy, wl = torch.empty((4, n, heads * cv), **f32)
+    v, g, y_or_gy, wl = torch.empty((4, n, ldk), **f32)
     wpart = torch.empty((n_blk, heads * cv, c_in if tf else c_out), **f32)
     rbar = torch.empty((n, heads), **f32)
     pbar = torch.empty((n, heads), **f32)
     xbar = torch.empty((n, c_in), **f32)
     y, gy = (y_or_gy, None) if tf else (None, y_or_gy)
     ptr = lambda t: None if t is None else t.data_ptr()
+    ms = _Parts(parts)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gbn_banded_aggregate_bwd(
             *(ptr(t) for t in (r, p, x, w, m, gout, v, g, y, gy, wl, wpart,
                                rbar, pbar, xbar)),
-            n, tile, heads, c_in, c_out, int(tf),
-            int(compute_dtype == torch.bfloat16), stream,
+            n, tile, heads, c_in, c_out, ldk, int(tf),
+            int(compute_dtype == torch.bfloat16), stream, ms.ptr,
         )
     if rc != 0:
         raise RuntimeError(f"banded aggregate backward launch failed: CUDA error {rc}")
     LAUNCHES["transform_first_bwd" if tf else "aggregate_first_bwd"] += 1
+    ms.fill(BWD_PARTS[tf])
     wbar = wpart.sum(dim=0)
     if tf:
         dw = wbar.reshape(heads, c_out, c_in).transpose(1, 2)

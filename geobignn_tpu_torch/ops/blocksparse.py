@@ -190,7 +190,7 @@ def bs_aggregate_bwd_plain(r, p, x, w, m, blk_idx, gout, compute_dtype=torch.bfl
 # the kernels
 # --------------------------------------------------------------------------
 
-def _launch(r, p, x, w, m, blk_idx, compute_dtype) -> torch.Tensor:
+def _launch(r, p, x, w, m, blk_idx, compute_dtype, parts=None) -> torch.Tensor:
     """TPU kernel #5 on Hopper: (N, C_out) f32."""
     lib = banded_cuda._load()["bs_fwd"]
     banded_cuda._check(r, p, x, w, m, compute_dtype, blk_idx=blk_idx)
@@ -199,25 +199,25 @@ def _launch(r, p, x, w, m, blk_idx, compute_dtype) -> torch.Tensor:
     heads = r.shape[1]
     c_out = w.shape[2]
     dev = x.device
-    if tile % lib.gbn_bs_rows_per_cta():
-        raise ValueError(f"tile {tile} is not a multiple of {lib.gbn_bs_rows_per_cta()}")
-    if heads > lib.gbn_bs_max_heads() or c_out > lib.gbn_bs_max_out():
-        raise ValueError(f"heads {heads} / c_out {c_out} exceed the kernel's "
-                         f"{lib.gbn_bs_max_heads()} / {lib.gbn_bs_max_out()}")
     tf = use_transform_first(c_in, c_out)
-    v = torch.empty((n, heads * (c_out if tf else c_in)), dtype=torch.float32, device=dev)
-    out = torch.empty((n, c_out), dtype=torch.float32, device=dev)
+    ldk = banded_cuda._fit(lib, "gbn_bs_", m, heads, c_out if tf else c_in)
+    f32 = dict(dtype=torch.float32, device=dev)
+    v = torch.empty((n, ldk), **f32)
+    zr = None if tf else torch.empty((n, ldk), **f32)
+    out = torch.empty((n, c_out), **f32)
+    ms = banded_cuda._Parts(parts)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gbn_bs_aggregate_fwd(
             r.data_ptr(), p.data_ptr(), x.data_ptr(), w.data_ptr(), m.data_ptr(),
-            blk_idx.data_ptr(), v.data_ptr(), out.data_ptr(), n, tile,
-            blk_idx.shape[1], heads, c_in, c_out, int(tf),
-            int(compute_dtype == torch.bfloat16), stream,
+            blk_idx.data_ptr(), v.data_ptr(), None if tf else zr.data_ptr(),
+            out.data_ptr(), n, tile, blk_idx.shape[1], heads, c_in, c_out, ldk,
+            int(tf), int(compute_dtype == torch.bfloat16), stream, ms.ptr,
         )
     if rc != 0:
         raise RuntimeError(f"block-sparse aggregate kernel launch failed: CUDA error {rc}")
     LAUNCHES["bs_transform_first" if tf else "bs_aggregate_first"] += 1
+    ms.fill(banded_cuda.FWD_PARTS[tf])
     return out
 
 
@@ -232,7 +232,7 @@ def _transpose_lists(blk_idx):
     return colptr.contiguous(), pairs.contiguous()
 
 
-def _launch_bwd(r, p, x, w, m, blk_idx, gout, compute_dtype):
+def _launch_bwd(r, p, x, w, m, blk_idx, gout, compute_dtype, parts=None):
     """TPU kernel #6 on Hopper: (r̄, p̄, x̄, W̄) in f32.  The kernel owns its
     output rows, so no window slabs are folded; W̄ is summed from the
     per-row-block partials as `_bs_bwd` sums the TPU kernel's slabs."""
@@ -245,31 +245,29 @@ def _launch_bwd(r, p, x, w, m, blk_idx, gout, compute_dtype):
     dev = x.device
     tf = use_transform_first(c_in, c_out)
     cv = c_out if tf else c_in
-    if tile % 32 or n % lib.gbn_bs_bwd_nodes_per_cta():
-        raise ValueError(f"tile {tile} / n {n} do not fit the backward kernel")
-    if heads > lib.gbn_bs_bwd_max_heads() or cv > lib.gbn_bs_bwd_max_width():
-        raise ValueError(f"heads {heads} / width {cv} exceed the backward kernel's "
-                         f"{lib.gbn_bs_bwd_max_heads()} / {lib.gbn_bs_bwd_max_width()}")
+    ldk = banded_cuda._fit(lib, "gbn_bs_bwd_", m, heads, cv)
     colptr, pairs = _transpose_lists(blk_idx)
     f32 = dict(dtype=torch.float32, device=dev)
-    v, g, y_or_gy, wl = torch.empty((4, n, heads * cv), **f32)
+    v, g, y_or_gy, wl = torch.empty((4, n, ldk), **f32)
     wpart = torch.empty((n_blk, heads * cv, c_in if tf else c_out), **f32)
     rbar = torch.empty((n, heads), **f32)
     pbar = torch.empty((n, heads), **f32)
     xbar = torch.empty((n, c_in), **f32)
     y, gy = (y_or_gy, None) if tf else (None, y_or_gy)
     ptr = lambda t: None if t is None else t.data_ptr()
+    ms = banded_cuda._Parts(parts)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gbn_bs_aggregate_bwd(
             *(ptr(t) for t in (r, p, x, w, m, blk_idx, colptr, pairs, gout, v, g,
                                y, gy, wl, wpart, rbar, pbar, xbar)),
-            n, tile, blk_idx.shape[1], heads, c_in, c_out, int(tf),
-            int(compute_dtype == torch.bfloat16), stream,
+            n, tile, blk_idx.shape[1], heads, c_in, c_out, ldk, int(tf),
+            int(compute_dtype == torch.bfloat16), stream, ms.ptr,
         )
     if rc != 0:
         raise RuntimeError(f"block-sparse aggregate backward launch failed: CUDA error {rc}")
     LAUNCHES["bs_transform_first_bwd" if tf else "bs_aggregate_first_bwd"] += 1
+    ms.fill(banded_cuda.BWD_PARTS[tf])
     wbar = wpart.sum(dim=0)
     if tf:
         dw = wbar.reshape(heads, c_out, c_in).transpose(1, 2)

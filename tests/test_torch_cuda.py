@@ -22,6 +22,7 @@ from geobignn_tpu_torch import graphs
 from geobignn_tpu_torch.data import synth
 from geobignn_tpu_torch.ops import banded, banded_cuda, blocksparse
 from geobignn_tpu_torch.structs import round_up
+from geobignn_tpu_torch.testing import edge_case_inputs
 
 
 @pytest.fixture
@@ -197,6 +198,79 @@ def test_blocksparse_conv_gradients_on_card_match_cpu(c_in, c_out, cuda_device):
         grads[str(dev)] = [t.grad.cpu() for t in (*leaves.values(), xd)]
     for a, b in zip(grads["cpu"], grads[str(cuda_device)]):
         assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+EDGE_WIDTHS = pytest.mark.parametrize(
+    "c_in,c_out", [(64, 32), (128, 64), (12, 32), (6, 32), (128, 128)],
+    ids=lambda v: str(v))
+
+
+@pytest.mark.cuda
+@EDGE_WIDTHS
+@pytest.mark.parametrize("blocksparse_", [False, True], ids=["band", "blocksparse"])
+@pytest.mark.parametrize("tile,n_blk", [(32, 2), (64, 4)], ids=["2x32", "4x64"])
+def test_kernels_match_plain_on_edge_cases(c_in, c_out, blocksparse_, tile, n_blk,
+                                           cuda_device):
+    """Rows without a set slot, set slots on absent neighbours at both ends,
+    mask values 2 and 3, D under the clamp, more set slots than one batch of
+    32 in a row and in a column (geobignn_tpu_torch.testing): the
+    forward and each cotangent against the plain versions, both compute
+    dtypes; r̄ of the rows under the clamp apart from the other rows'."""
+    case = edge_case_inputs(c_in, c_out, tile=tile, n_blk=n_blk, seed=tile + n_blk,
+                            blocksparse=blocksparse_)
+    names = ("r", "p", "x", "w", "m") + (("blk_idx",) if blocksparse_ else ())
+    args = [torch.from_numpy(case[k]).to(cuda_device) for k in names]
+    gout = torch.from_numpy(case["gout"]).to(cuda_device)
+    mod, stem = ((blocksparse, "bs_aggregate") if blocksparse_
+                 else (banded_cuda, "banded_aggregate"))
+    clamped = torch.from_numpy(case["clamped"]).to(cuda_device)
+    rest = torch.ones(gout.shape[0], dtype=torch.bool, device=cuda_device)
+    rest[clamped] = False
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        before = sum(banded_cuda.LAUNCHES.values())
+        out = getattr(mod, stem)(*args, compute_dtype=dt)
+        got = getattr(mod, stem + "_bwd")(*args, gout, compute_dtype=dt)
+        torch.cuda.synchronize()
+        assert sum(banded_cuda.LAUNCHES.values()) == before + 2
+        ref = getattr(mod, stem + "_plain")(*args, compute_dtype=dt)
+        want = getattr(mod, stem + "_bwd_plain")(*args, gout, compute_dtype=dt)
+        assert torch.isfinite(out).all()
+        assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+        pairs = [("r clamped", got[0][clamped], want[0][clamped]),
+                 ("r rest", got[0][rest], want[0][rest])]
+        pairs += [(k, g, w_) for k, g, w_ in zip("pxw", got[1:], want[1:])]
+        for name, g, w_ in pairs:
+            err = float((g - w_).abs().max())
+            assert torch.isfinite(g).all(), name
+            assert err <= tol * float(w_.abs().max()), (name, dt, err)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_bit_repeatable(cuda_device):
+    """No atomics: two launches on the same inputs give the same bits."""
+    args = _problem(64, 32, cuda_device, seed=6)
+    first = banded_cuda.banded_aggregate_bwd(*args)
+    second = banded_cuda.banded_aggregate_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(banded_cuda.banded_aggregate(*args[:-1]),
+                       banded_cuda.banded_aggregate(*args[:-1]))
+
+
+@pytest.mark.cuda
+@SCHEDULES
+def test_parts_are_timed_on_request(c_in, c_out, cuda_device):
+    """A dict handed in as `parts` receives each kernel's milliseconds under
+    the names of FWD_PARTS / BWD_PARTS; the results do not change."""
+    args = _problem(c_in, c_out, cuda_device, seed=7)
+    tf = c_out < c_in
+    fwd, bwd = {}, {}
+    out = banded_cuda._launch(*args[:-1], torch.bfloat16, parts=fwd)
+    got = banded_cuda._launch_bwd(*args, torch.bfloat16, parts=bwd)
+    assert tuple(fwd) == banded_cuda.FWD_PARTS[tf] and tuple(bwd) == banded_cuda.BWD_PARTS[tf]
+    assert all(0.0 < v < 100.0 for v in (*fwd.values(), *bwd.values()))
+    assert torch.equal(out, banded_cuda.banded_aggregate(*args[:-1]))
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, banded_cuda.banded_aggregate_bwd(*args)))
 
 
 # --------------------------------------------------------------------------
