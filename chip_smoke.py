@@ -14,11 +14,19 @@ non-zero without the final result line:
      Config() defaults and seeded random weights denoises
      add_noise(icosphere(5), 0.2, seed=0) — 20,480 faces in 2 patches —
      through predict_dir's body (60 update iterations, `{name}-60.obj`
-     written to a temp dir).  Launch counts are zeroed just before and read
-     just after; one mesh must launch the banded aggregate-first kernel 18
-     times and the transform-first kernel 20 times, and nothing else.  Wall
-     time of the mesh after a warm-up mesh; the host build, one patch's
-     forward and the update loop timed apart;
+     written to a temp dir).  A warm-up mesh runs eagerly
+     (testing.eager_steps()) and records the kernels' inputs; then the
+     main path on a fresh plan: its first patch runs eagerly and is
+     captured, the second replays the CUDA graph.  Launch counts are zeroed
+     just before and read just after, and the run is profiled: the device
+     must run the banded aggregate-first kernel 18 times and the
+     transform-first kernel 20 times, and nothing else (counted by kernel
+     name, replays included); the wrappers count the eager patch and the
+     capture, and the graph replayed once.  Wall time of a mesh whose plan
+     is captured; the host build, one patch's forward and the update loop
+     timed apart; then a patch's forward as a graph replay against the
+     eager forward: outputs equal, time over 20 calls (median, min, max;
+     CUDA events) and kernels per forward both ways;
   4. the same predict_mesh with device="cpu" (plain PyTorch versions)
      against the GPU run; then the dense-table convs on the card (plain
      torch, no kernel launched): predict_mesh under Config(reorder=False),
@@ -27,7 +35,7 @@ non-zero without the final result line:
   5. the serving path on a mesh whose patches disagree on a band (noise
      seed 1: TableWidths.merge drops the finest facet level's band and both
      patches run it block-sparse, 79 row blocks of 256 over K column
-     blocks): the same body, counts zeroed and read the same way — the
+     blocks): the same body, counted the same way — the
      block-sparse forward 2 + 4 times (aggregate-first / transform-first),
      the banded forward 14 + 12 times, no backward; wall time after a
      warm-up; patch 0's forward on the card against device="cpu";
@@ -59,8 +67,20 @@ non-zero without the final result line:
      step between CUDA events; with seeds (0, 6), 20 steps on one patch
      must lower its loss;
      then the main path, Trainer(Config(seed=0, max_epoch=2)).fit() —
-     counts zeroed just before, read just after — with per-epoch loss,
-     s/step and edges/s; and each backward kernel against its plain backward on the
+     the first step eager and captured, the others replays of its CUDA
+     graph — counts zeroed just before, read just after, and profiled: the
+     device runs the step's kernels 8 times (by kernel name), the wrappers
+     count the eager step and the capture; per-epoch loss, s/step and
+     edges/s; then the graphed
+     step against the eager one: 3 epochs of Trainer.fit with rotation on
+     and the learning rate halved each epoch, parameters and Adam's moments
+     bit-equal; per step, both ways, the time over 20 steps (median, min,
+     max; CUDA events), the kernels launched, the device busy share
+     (profile_train_step's profiler) and mfu_pct (train/roofline.py), the
+     copy of the cached sample into the graph's inputs, and the index
+     backward with autograd's scatter-add (before the gathers' custom
+     backwards) and with the gathers' own; and each backward kernel against
+     its plain backward on the
      inputs the path gave it (with a seeded gout), timed, with its bound
      and its parts (the operand product, the row operand, the row pass, the
      column pass, the x̄ and W̄ products; the banded ones from seeds (0, 6),
@@ -68,6 +88,13 @@ non-zero without the final result line:
      facet head alone at N = 2^20 rows, forward and backward, in its row
      chunks rematerialized against one piece with every intermediate kept
      (peaks of torch.cuda.max_memory_allocated, at least 4 GiB apart);
+ 7b. the bench's shape: union_batch of 8 add_noise(icosphere(5), 0.2, seed=0)
+     samples under Config(granularity=256), bf16 heads (N = 165,888 facet
+     slots): one graphed training step through Trainer.fused_step, timed
+     over 20 replays, its edges/s (branch_messages x 8) and mfu_pct; 3 more
+     replays profiled, the device running 3 times the launches the graph
+     recorded and the wrappers counting none; kernels #1-#4 at that N
+     against their plain versions on the step's inputs;
   8. the run-directory path, through the entry points a user calls, at the
      default model's full width (Config() defaults, sub_size 20000), in a
      temp directory: a reference-layout corpus (Synthetic/{train,test}/
@@ -98,7 +125,12 @@ non-zero without the final result line:
      bound (2 n m k float32 operations, k FMAs a pair, at 67 TFLOP/s) and
      the time of torch.cdist(a, b).min(dim=1), which materialises the
      matrix;
- 10. one JSON line of the nine kernels, then the result line.
+ 10. one JSON line of the nine kernels, then the result line.  An
+     aggregate's `launches` is what the device ran in the main path's runs
+     (a profile, by kernel name: each launch runs one row_walk_kernel,
+     whose template arguments name the aggregate): the forward ones from the
+     two served meshes, the backward ones from Trainer.fit; nearest's is
+     its wrapper's count in the evaluation, which no graph holds.
 
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
 max|out| (both round the same operands to bf16, but a D summed in another
@@ -116,7 +148,15 @@ so the same comparison in float32 compute holds every tensor, `u`
 included, GPU against CPU and each against the float64 step, within
 F32_GRAD_TOL of its max|g| on both training sets: float32 sums in another
 order, about 5x the worst reading; the losses within 1e-5 of the float64
-one.  The block-sparse kernels are also held in place, float32 compute,
+one.  The CPU's steps take the max-pooling member and the LeakyReLU
+branch the card's step took wherever they round the point apart
+(testing.same_branches; the count is printed): the gradient of a max
+jumps at a tie and that of a LeakyReLU at 0, and two branches differ by
+the jump, not by rounding (one Adam step's rounding, at most 3e-8 of a
+weight, put such points apart and moved the worst reading from 2e-5 to
+3.4e-3).  Only near-ties are held: each flipped value's two branches lie
+within testing.TIE_TOL (1e-5) of its row's scale, else the step fails, and
+at most MAX_HELD (16) values a step flip.  The block-sparse kernels are also held in place, float32 compute,
 against their own plain versions on the card: every parameter gradient
 within 1e-4.
 The nearest-distance kernel's error is that of the expansion
@@ -182,6 +222,7 @@ _BS = "geobignn_tpu/ops/blocksparse.py"
 # float32 bound on parameter gradients, of max|g|: GPU vs CPU and each against
 # a float64 step (see the docstring)
 F32_GRAD_TOL = 2e-4
+MAX_HELD = 16  # values a step may hold to the card's branch (testing.same_branches)
 TPU_KERNEL = {  # file:line of the TPU kernel each CUDA kernel replaces
     "aggregate_first": f"{_PALLAS}:220", "transform_first": f"{_PALLAS}:104",
     "aggregate_first_bwd": f"{_PALLAS}:241", "transform_first_bwd": f"{_PALLAS}:141",
@@ -330,13 +371,16 @@ def _recording(captured, backward=False):
             # rest: [blk_idx,] [gout,] [compute_dtype]
             tf = banded_cuda.use_transform_first(x.shape[1], w.shape[2])
             name = prefix + FWD[tf] + ("_bwd" if backward else "")
-            ent = captured.setdefault(
-                (name, x.shape[0], m.shape[1], x.shape[1], w.shape[2], m.shape[2]),
-                {"args": [t.detach().clone() for t in (r, p, x, w, m)
-                          + ((rest[0],) if prefix else ())],
-                 "cd": kw.get("compute_dtype", rest[-1] if rest and not
-                              torch.is_tensor(rest[-1]) else torch.bfloat16),
-                 "calls": 0})
+            key = (name, x.shape[0], m.shape[1], x.shape[1], w.shape[2], m.shape[2])
+            if key not in captured:  # cloned once: a call being captured into
+                # a CUDA graph comes after its warm-up's and clones nothing
+                captured[key] = {
+                    "args": [t.detach().clone() for t in (r, p, x, w, m)
+                             + ((rest[0],) if prefix else ())],
+                    "cd": kw.get("compute_dtype", rest[-1] if rest and not
+                                 torch.is_tensor(rest[-1]) else torch.bfloat16),
+                    "calls": 0}
+            ent = captured[key]
             if backward:
                 ent["gout_shape"] = tuple(rest[1 if prefix else 0].shape)
             ent["calls"] += 1
@@ -352,6 +396,38 @@ def _recording(captured, backward=False):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def _counted():
+    """Counts of one run of the main path.  Yields a dict filled on exit:
+    "wrappers", the wrappers' counts (banded_cuda.LAUNCHES, zeroed on
+    entry: eager launches and those recorded into a capture), and "device",
+    the aggregate kernels the device ran (a profile of the run, by kernel
+    name: eager launches and those of every replay)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import profile_train_step as pts
+
+    from geobignn_tpu_torch.ops import banded_cuda
+
+    out: dict = {}
+    banded_cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield out
+        torch.cuda.synchronize()
+    out["wrappers"] = dict(banded_cuda.LAUNCHES)
+    out["device"] = {**dict.fromkeys(AGGREGATES, 0),
+                     **pts.aggregate_launches(pts.device_kernels(prof))}
+
+
+def _replayed(cnt, graph, replays, captures):
+    """Whether a counted run's device launches are its wrappers' counts
+    less those recorded into its `captures` (0 or 1) of the graph, plus
+    graph.launches for each of its replays."""
+    return cnt["device"] == {
+        k: cnt["wrappers"][k] + (replays - captures) * graph.launches[k] for k in AGGREGATES}
 
 
 def _functions(name):
@@ -556,16 +632,17 @@ def check_backward(key, ent, gen):
 
 
 def serve_phase(pred, seed, tag):
-    """The serving path on add_noise(icosphere(5), 0.2, seed): a recorded
-    warm-up mesh, then the timed mesh with its launch counts.  Returns the
-    mesh, the recorded forward calls, the counts and the wall seconds."""
+    """The serving path on add_noise(icosphere(5), 0.2, seed): an eager,
+    recorded warm-up mesh, the counted mesh on a fresh plan, then the timed
+    mesh.  Returns the mesh, the recorded forward calls, the device's
+    launches and the wall seconds."""
     import numpy as np
     import torch
 
     from geobignn_tpu_torch import meshio
     from geobignn_tpu_torch.data import synth
     from geobignn_tpu_torch.infer import predict
-    from geobignn_tpu_torch.ops import banded_cuda
+    from geobignn_tpu_torch.testing import eager_steps
 
     mesh = synth.add_noise(synth.icosphere(5), 0.2, seed=seed)
     assert mesh.n_faces == 20480, mesh.n_faces
@@ -580,19 +657,27 @@ def serve_phase(pred, seed, tag):
         meshio.write_obj(os.path.join(data, "original", "ball.obj"),
                          clean.points, clean.fv_indices)
 
-        with _recording(captured):  # warm-up mesh, recorded
+        with _recording(captured), eager_steps():  # warm-up mesh, one call a launch
             predict.predict_dir_body(pred, dataset_root=root)
         torch.cuda.synchronize()
 
-        banded_cuda.reset_launches()
+        pred._graph = None  # a fresh plan: the first patch runs eagerly and captures
+        with _counted() as cnt:
+            res = predict.predict_dir_body(pred, dataset_root=root)
+        graph, launches = pred._graph, cnt["device"]
+        print(f"[{tag}] one mesh (noise seed {seed}, {mesh.n_faces} faces, 2 patches, "
+              f"60 update iterations), profiled: the device ran {_nonzero(launches)}; "
+              f"the wrappers counted {_nonzero(cnt['wrappers'])} (the eager patch and "
+              f"the capture); the graph replayed {graph.replays} time(s)")
+        assert launches == {k: SERVE_LAUNCHES[seed][k] for k in AGGREGATES}, launches
+        assert graph.replays == 1 and _replayed(cnt, graph, 1, 1), cnt
+        assert cnt["wrappers"] == {k: 2 * v for k, v in graph.launches.items()}
+
         t0 = time.perf_counter()
-        res = predict.predict_dir_body(pred, dataset_root=root)
+        predict.predict_dir_body(pred, dataset_root=root)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(banded_cuda.LAUNCHES)
-        print(f"[{tag}] one mesh (noise seed {seed}, {mesh.n_faces} faces, 2 patches, "
-              f"60 update iterations): {wall:.3f} s wall; launches {launches}")
-        assert launches == SERVE_LAUNCHES[seed], launches
+        print(f"[{tag}] one mesh, its plan captured: {wall:.3f} s wall")
         out = meshio.read_obj(os.path.join(res["result_dir"], "ball_n1-60.obj"))
         assert out.n_faces == mesh.n_faces and out.n_vertices == mesh.n_vertices
         assert np.isfinite(out.points).all()
@@ -606,14 +691,16 @@ def serve_phase(pred, seed, tag):
     return mesh, captured, launches, wall
 
 
-def train_phase(torch, np, seeds, overfit):
-    """Phase 7, for one training set: the training path on the card.
+def train_phase(torch, np, seeds, overfit, kind):
+    """Phase 7, for one training set: the training path on the card, then
+    its step as a CUDA graph against the eager step (graph_train_phase).
     Returns the recorded backward calls, the ms per step and the launch
     counts of the main path (Trainer.fit)."""
     from geobignn_tpu_torch.config import Config
     from geobignn_tpu_torch.data import dataset, synth
     from geobignn_tpu_torch.ops import banded_cuda, blocksparse
-    from geobignn_tpu_torch.testing import grad_agreement, without_remat
+    from geobignn_tpu_torch.testing import (TIE_TOL, grad_agreement, same_branches,
+                                            without_remat)
     from geobignn_tpu_torch.train.trainer import Trainer
 
     tag = f"train{seeds}"
@@ -674,9 +761,23 @@ def train_phase(torch, np, seeds, overfit):
     assert not_u[worst][0] <= 5e-2 and not_u[min_cos][1] >= 0.99
     del g16, c16
 
-    g32, l_g32, _ = _grad_step(state, s0, "float32", cfg)
-    c32, l_c32, secs32 = _grad_step(state, s0_cpu, "float32", cfg)
-    c64, l_c64, secs64 = _grad_step(state, s0_cpu, "float64", cfg)
+    # the CPU steps differentiate the branches of the max-pooling and the
+    # LeakyReLU that the card's step took (same_branches): a point that
+    # float32 and float64, or the two devices, round apart would otherwise
+    # compare two branches of a function whose gradient jumps there
+    picks: list = []
+    with same_branches(picks, replay=False):
+        g32, l_g32, _ = _grad_step(state, s0, "float32", cfg)
+    with same_branches(picks, replay=True) as flips32:
+        c32, l_c32, secs32 = _grad_step(state, s0_cpu, "float32", cfg)
+    with same_branches(picks, replay=True) as flips64:
+        c64, l_c64, secs64 = _grad_step(state, s0_cpu, "float64", cfg)
+    print(f"[{tag}] max-pooling picks and LeakyReLU signs the CPU steps round apart "
+          f"from the card's, held to the card's: float32 {flips32[0]}, float64 "
+          f"{flips64[0]} (at most {MAX_HELD}); the widest of them "
+          f"{max(flips32[1], flips64[1]):.3e} of its row's scale (near-ties: at most "
+          f"{TIE_TOL})")
+    assert flips32[0] <= MAX_HELD and flips64[0] <= MAX_HELD
     worst_f32 = 0.0
     for label, mdl, ref in (("GPU vs CPU", g32, c32), ("GPU vs CPU float64", g32, c64),
                             ("CPU vs CPU float64", c32, c64)):
@@ -762,24 +863,250 @@ def train_phase(torch, np, seeds, overfit):
               f"f {m['loss_f']:.5f}) error_f {m['error_f']:.4f} deg; "
               f"{1.0 / m['samples_per_s']:.4f} s/step; edges/s {m['edges_per_s']:.4e}")
 
-    banded_cuda.reset_launches()
     t0 = time.perf_counter()
-    best = tr.fit(on_epoch=report)
-    torch.cuda.synchronize()
+    with _counted() as cnt:
+        best = tr.fit(on_epoch=report)
     fit_s = time.perf_counter() - t0
-    launches = dict(banded_cuda.LAUNCHES)
+    launches = cnt["device"]
     n_steps = cfg.max_epoch * len(train_ds)
+    (graph,) = tr._graphs.values()
     print(f"[{tag}] fit: {cfg.max_epoch} epochs x {len(train_ds)} steps in "
-          f"{fit_s:.3f} s; best error_f {best:.4f}; "
-          f"launches {launches}")
-    assert launches == {k: n_steps * v for k, v in step_launches.items()}, launches
+          f"{fit_s:.3f} s under the profiler; best error_f {best:.4f}; the device ran "
+          f"{_nonzero(launches)}; the wrappers counted {_nonzero(cnt['wrappers'])} "
+          f"(the eager first step and the capture); the graph replayed "
+          f"{graph.replays} times")
+    assert launches == {k: n_steps * step_launches[k] for k in AGGREGATES}, launches
+    assert graph.replays == n_steps - 1 and _replayed(cnt, graph, n_steps - 1, 1), cnt
+    assert cnt["wrappers"] == {k: 2 * v for k, v in step_launches.items()}
     assert len(epochs) == cfg.max_epoch
     assert all(np.isfinite([m[k] for k in ("loss", "loss_v", "loss_f", "error_v",
                                             "error_f")]).all() for m in epochs)
     assert {k: sum(e["calls"] for kk, e in captured.items() if kk[0] == k)
             for k in KERNELS if k.endswith("_bwd")} \
         == {k: v for k, v in step_launches.items() if k.endswith("_bwd")}
-    return {"captured": captured, "launches": launches, "step_ms": step_ms}
+    del tr, probe, graph
+    torch.cuda.empty_cache()
+    graphs = graph_train_phase(torch, np, train_ds, seeds, kind)
+    return {"captured": captured, "launches": launches, "step_ms": step_ms,
+            "graph": graphs}
+
+
+def _profiled(step, steps=5):
+    """(host ms per step without the profiler, device ms per step, kernels
+    per step, {group: [ms, launches]}) of step(i), by profile_train_step's
+    profiler and kernel groups."""
+    import profile_train_step as pts
+
+    step_ms, kernels = pts.profile_steps(step, steps)
+    total = sum(ms for ms, _ in kernels.values())
+    launches = sum(cnt for _, cnt in kernels.values())
+    return step_ms, total, launches, pts.groups_of(kernels)
+
+
+def _busy(prof):
+    step_ms, dev_ms, launches, _ = prof
+    return (f"{launches:.0f} kernels, device {dev_ms:.3f} ms, busy share "
+            f"{dev_ms / step_ms:.3f} (host clock {step_ms:.3f} ms)" if dev_ms else
+            f"device time not measured (the profiler recorded no kernel); host "
+            f"clock {step_ms:.3f} ms")
+
+
+def _spread(t):
+    return (f"median {t['median_ms']:.3f}, min {t['min_ms']:.3f}, max "
+            f"{t['max_ms']:.3f} ms over {t['n']}")
+
+
+def graph_train_phase(torch, np, train_ds, seeds, kind):
+    """The training step as one CUDA graph against the eager step, on one
+    training set: parameters and Adam's moments after 3 epochs of 4 steps
+    (rotation on, the learning rate halved each epoch) bit-equal; per step,
+    the time (CUDA events, >= 20 steps), the kernels launched, the device
+    busy share and mfu_pct, both ways; autograd's index backward before and
+    after the gathers' custom backwards."""
+    import itertools
+
+    import profile_train_step as pts
+
+    from geobignn_tpu_torch import capture
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train import optim, profiling, roofline
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    tag = f"graph{seeds}"
+    cfg = Config(seed=0, max_epoch=3, lr_sch="exp", lr_decay=0.5)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        tr = Trainer(cfg, train_ds, None, device="cuda")
+        lrs = []
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            tr.fit(on_epoch=lambda t, m, e: lrs.append((optim.get_lr(t.optimizer),
+                                                         m["loss"])))
+        runs[mode] = (tr, lrs)
+    (g, g_hist), (e, e_hist) = runs["graphed"], runs["eager"]
+    assert len(g._graphs) == 1 and not e._graphs
+    pairs = [(a, b) for a, b in zip(g.model.parameters(), e.model.parameters())]
+    pairs += [(g.optimizer.state[a][k], e.optimizer.state[b][k])
+              for a, b in zip(g.model.parameters(), e.model.parameters())
+              for k in ("exp_avg", "exp_avg_sq", "step")]
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    same = all(torch.equal(a, b) for a, b in pairs)
+    print(f"[{tag}] Trainer.fit, 3 epochs x {len(train_ds)} steps, rotation on, lr "
+          f"per epoch {[round(lr, 8) for lr, _ in g_hist]}: epoch losses graphed "
+          f"{[round(x, 7) for _, x in g_hist]}, eager {[round(x, 7) for _, x in e_hist]}; "
+          f"parameters and Adam's moments bit-equal {same} (max difference {diff:.3e})")
+    assert [lr for lr, _ in g_hist] == [lr for lr, _ in e_hist] and g_hist[0][0] > g_hist[1][0]
+    assert same
+    del runs, g, e, pairs
+
+    # per step, graphed and eager, on one patch
+    tr = Trainer(Config(seed=0), train_ds, None, device="cuda")
+    sample = tr._get(train_ds, "t", 0)
+    it = itertools.count()
+    graphed = profiling.time_steps(lambda: tr.fused_step(sample, next(it)), steps=20)
+    graph = next(iter(tr._graphs.values()))
+    dst, src = capture.tensors(graph.inputs), capture.tensors((sample, None))
+    copy_bytes = sum(t.numel() * t.element_size() for t in src)
+    copy_ms = _cuda_ms(lambda: torch._foreach_copy_(dst[:len(src)], src), reps=20)
+    prof_g = _profiled(lambda i: tr.fused_step(sample, i))
+
+    def eager(i):
+        tr._step(sample, i)
+        tr._apply(1)
+
+    with eager_steps():
+        eager_t = profiling.time_steps(lambda: eager(next(it)), steps=20)
+        prof_e = _profiled(eager)
+        with pts.plain_gathers():
+            prof_p = _profiled(eager)
+    mfu = {k: roofline.roofline(sample, t["median_ms"] / 1e3)
+           for k, t in (("graphed", graphed), ("eager", eager_t))}
+    print(f"[{tag}] one training step on one 20,000-face patch, CUDA events: graphed "
+          f"{_spread(graphed)}; eager {_spread(eager_t)}; card {kind}")
+    print(f"[{tag}] per step, profiler: graphed {_busy(prof_g)}; eager {_busy(prof_e)}; "
+          f"the graph holds {sum(graph.launches.values())} aggregate launches "
+          f"{ {k: v for k, v in graph.launches.items() if v} }")
+    print(f"[{tag}] roofline at the median step: graphed {mfu['graphed']}; eager "
+          f"{mfu['eager']}")
+    print(f"[{tag}] the step's copy of the cached sample into the graph's inputs: "
+          f"{copy_bytes / 1e6:.1f} MB in {len(src)} tensors, {copy_ms:.3f} ms "
+          f"(CUDA events)")
+    idx = "index backward (autograd)"
+    for label, prof in (("autograd's scatter-add (before)", prof_p),
+                        ("custom gather backwards (after)", prof_e)):
+        ms, n = prof[3].get(idx, [0.0, 0.0])
+        print(f"[{tag}] eager step with {label}: index backward {ms:.3f} ms, "
+              f"{n:.0f} launches; device total {prof[1]:.3f} ms, {prof[2]:.0f} kernels")
+    assert np.isfinite([graphed["median_ms"], eager_t["median_ms"]]).all()
+    return {"graphed": graphed, "eager": eager_t, "mfu": mfu}
+
+
+def union_phase(torch, np, kind):
+    """One graphed training step (Trainer.fused_step) on union_batch of 8
+    add_noise(icosphere(5), 0.2, seed=0) samples under Config(granularity=256)
+    and bf16 fc heads — the shape of bench.py's workload — timed over 20
+    replays, with its edges/s; kernels #1-#4 at that N against their plain
+    versions, on the inputs the step gave them."""
+    import itertools
+
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import batching, builder, dataset, synth
+    from geobignn_tpu_torch.train import profiling, roofline
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    tag = "union"
+    cfg = Config(seed=0, granularity=256)
+    bc = cfg.build_config()
+    clean = synth.icosphere(5)
+    noisy = synth.add_noise(clean, 0.2, seed=0)
+    t0 = time.perf_counter()
+    bv, bf, meta = builder.build_raw(noisy, clean, bc)
+    single, _ = builder.build_dual_sample(noisy, clean, bc)
+    widths = builder.widths_for(bv, bf, meta["fv_indices"], with_bands=True)
+    union = builder.attach_tables(batching.union_batch([single] * 8), widths)
+    host_s = time.perf_counter() - t0
+    msgs = (dataset.branch_messages(bv) + dataset.branch_messages(bf)) * 8
+    masks = [(side, i, lvl.band.shape, lvl.blk_idx is not None, lvl.jband is not None)
+             for side in ("v", "f") for i, lvl in enumerate(getattr(union, side).levels)
+             if lvl.band is not None]
+    n_v, n_f = union.v.x.shape[0], union.f.x.shape[0]
+    print(f"[{tag}] union_batch of 8 x {bf.n_nodes} faces: N vertex {n_v}, facet {n_f}; "
+          f"masks (side, level, shape, block-sparse, sub-band) {masks}; host build "
+          f"{host_s:.2f} s; real edge messages per step {msgs}")
+    # the kernels index rows, mask bytes and scratch elements in 64 bits
+    # (long long in window_walk.cuh, window_bwd.cuh, node_product.cuh); ints
+    # hold N, tiles and widths, far below 2^31 here
+    assert max(int(np.prod(sh)) for _, _, sh, _, _ in masks) < 2**31 and n_f < 2**31 // 1152
+
+    ds = dataset.InMemoryDataset([(noisy, clean)], bc, submesh_size=cfg.sub_size)
+    tr = Trainer(cfg, ds, None, device="cuda")
+    sample = union.to("cuda")
+    fwd, bwd = {}, {}
+    with _recording(fwd), _recording(bwd, backward=True):
+        tr.fused_step(sample, 0)  # the eager warm-up, then the capture
+    it = itertools.count(1)
+    stats = profiling.time_steps(lambda: tr.fused_step(sample, next(it)), steps=20,
+                                 warmup=2)
+    (graph,) = tr._graphs.values()
+    with _counted() as cnt:  # replays: the wrappers count none
+        for _ in range(3):
+            tr.fused_step(sample, next(it))
+    print(f"[{tag}] 3 replays, profiled: the device ran {_nonzero(cnt['device'])}; the "
+          f"wrappers counted {sum(cnt['wrappers'].values())}")
+    assert sum(cnt["wrappers"].values()) == 0 and _replayed(cnt, graph, 3, 0), cnt
+    loss = float(tr._sums["loss"])
+    edges = msgs / (stats["median_ms"] / 1e3)
+    mfu = roofline.roofline(sample, stats["median_ms"] / 1e3)
+    print(f"[{tag}] one graphed training step (forward, backward, Adam at 1e-3, bf16 "
+          f"heads): {_spread(stats)} (CUDA events); {edges:.4e} edges/s at the median "
+          f"({msgs} messages); {mfu}; launches per step "
+          f"{ {k: v for k, v in graph.launches.items() if v} }; loss sum {loss:.4f}; "
+          f"card {kind}")
+    assert np.isfinite(loss) and all(graph.launches[k] for k in AGGREGATES[:2] + AGGREGATES[4:6])
+    del tr, graph, sample
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for captured, check in ((fwd, check_forward), (bwd, check_backward)):
+        for name in sorted({k[0] for k in captured}):
+            key = max((k for k in captured if k[0] == name), key=lambda k: k[1])
+            if check is check_forward:
+                check(key, captured[key], reps=5)
+            else:
+                check(key, captured[key], gen)
+            torch.cuda.empty_cache()
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    return {"edges_per_s": edges, "step": stats}
+
+
+def serve_graph_phase(torch, pred, mesh, kind):
+    """A patch's forward as one replay of the predictor's CUDA graph against
+    the eager forward: outputs equal, time (CUDA events, 20 calls) and
+    kernels per forward both ways."""
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train import profiling
+
+    mem = pred.patch_dataset(mesh)
+    s0 = mem.get(0).to("cuda")
+    vg, ng = (t.clone() for t in pred.forward(s0))
+    graphed = profiling.time_steps(lambda: pred.forward(s0), steps=20)
+    prof_g = _profiled(lambda i: pred.forward(s0))
+    with eager_steps():
+        ve, ne = pred.forward(s0)
+        eager = profiling.time_steps(lambda: pred.forward(s0), steps=20)
+        prof_e = _profiled(lambda i: pred.forward(s0))
+    same = torch.equal(vg, ve) and torch.equal(ng, ne)
+    print(f"[serve-graph] one patch's forward (noise seed 0, patch 0): graphed "
+          f"{_spread(graphed)}; eager {_spread(eager)} (CUDA events); per forward, "
+          f"graphed {_busy(prof_g)}; eager {_busy(prof_e)}; positions and normals "
+          f"equal {same} (max |dv| {float((vg - ve).abs().max()):.3e}); card {kind}")
+    assert same
+    return {"graphed": graphed, "eager": eager}
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 def _fwd_only(counts):
@@ -827,12 +1154,11 @@ def rundir_phase(torch, np):
 
         # 8.1 train(cfg): the run directory
         stdout = sys.stdout
-        banded_cuda.reset_launches()
         t0 = time.perf_counter()
-        run_dir = train(cfg)
-        torch.cuda.synchronize()
+        with _counted() as train_cnt:
+            run_dir = train(cfg)
         train_s = time.perf_counter() - t0
-        train_launches = dict(banded_cuda.LAUNCHES)
+        train_launches = train_cnt["device"]
         assert sys.stdout is stdout, "train() left its tee on sys.stdout"
         for name in ("params.json", "ckpt_best.pkl", "ckpt_last.pkl", "metrics.jsonl",
                      "training_info.txt", "code_bak/geobignn_tpu_torch/csrc/nearest.cu",
@@ -849,12 +1175,15 @@ def rundir_phase(torch, np):
                   f"edges/s {r['edges_per_s']:.4e}")
             assert np.isfinite([r["loss"], r["error_f"], r["edges_per_s"]]).all()
         print(f"[{tag}] train(Config(seed=0, max_epoch=2)) on 2 meshes (4 patches) + 1 "
-              f"test mesh (2 patches): {train_s:.3f} s wall with the host builds and "
-              f"the snapshot; launches {train_launches}")
+              f"test mesh (2 patches): {train_s:.3f} s wall under the profiler, with the "
+              f"host builds and the snapshot; the device ran {_nonzero(train_launches)}; "
+              f"the wrappers counted {_nonzero(train_cnt['wrappers'])}")
         n_steps = 2 * 4
-        assert {k: v for k, v in train_launches.items() if k.endswith("_bwd")} \
-            == {k: n_steps * v for k, v in step.items() if k.endswith("_bwd")}, train_launches
-        assert train_launches["nearest"] == 0
+        bwd = [k for k in AGGREGATES if k.endswith("_bwd")]
+        # the device: 8 steps; the wrappers: the eager first step and the capture
+        assert {k: train_launches[k] for k in bwd} == {k: n_steps * step[k] for k in bwd}
+        assert {k: train_cnt["wrappers"][k] for k in bwd} == {k: 2 * step[k] for k in bwd}
+        assert train_cnt["wrappers"]["nearest"] == 0
 
         # 8.2 Predictor.from_run: version-pinned, the checkpoint's weights
         best, _, scalars = ckpt.load_checkpoint(os.path.join(run_dir, "ckpt_best.pkl"))
@@ -888,22 +1217,23 @@ def rundir_phase(torch, np):
         del pinned, live
 
         # 8.3 predict_dir
-        banded_cuda.reset_launches()
         t0 = time.perf_counter()
-        rep = predict.predict_dir(run_dir, dataset_root=root)
-        torch.cuda.synchronize()
+        with _counted() as serve_cnt:
+            rep = predict.predict_dir(run_dir, dataset_root=root)
         serve_s = time.perf_counter() - t0
-        serve_launches = dict(banded_cuda.LAUNCHES)
+        serve_launches = serve_cnt["device"]
         out_path = os.path.join(rep["result_dir"], f"ball_n{test_seed}-60.obj")
         out = meshio.read_obj(out_path)
-        print(f"[{tag}] predict_dir: {serve_s:.3f} s wall (pinned import, one mesh); "
-              f"angle1 {rep['angle_mean1']:.4f} angle2 {rep['angle_mean2']:.4f}; "
-              f"launches {serve_launches}")
+        print(f"[{tag}] predict_dir: {serve_s:.3f} s wall under the profiler (pinned "
+              f"import, one mesh); angle1 {rep['angle_mean1']:.4f} angle2 "
+              f"{rep['angle_mean2']:.4f}; the device ran {_nonzero(serve_launches)}")
         assert rep["result_dir"] == os.path.join(test_dir, "result_smoke")
         assert out.n_vertices == mesh_t.n_vertices and np.isfinite(out.points).all()
         assert np.isfinite([rep["angle_mean1"], rep["angle_mean2"]]).all()
         assert sum(_fwd_only(serve_launches).values()) >= 32, serve_launches  # 2 x 16 convs
-        assert serve_launches == _counts(**_fwd_only(serve_launches))
+        assert serve_launches == {k: _fwd_only(serve_launches).get(k, 0) for k in AGGREGATES}
+        # the first patch eager and captured, the second replayed
+        assert serve_cnt["wrappers"] == {**serve_launches, "nearest": 0}
         assert serve_launches["aggregate_first"] and serve_launches["transform_first"]
         # train() = 8 steps + 2 evaluation passes over the same two patches
         assert _fwd_only(train_launches) == {
@@ -1079,7 +1409,7 @@ def main() -> int:
     from geobignn_tpu_torch.infer import predict
     from geobignn_tpu_torch.models.dual_gnn import DualGNN
     from geobignn_tpu_torch.ops import banded_cuda
-    from geobignn_tpu_torch.testing import aggregates_in, heads_peak_bytes
+    from geobignn_tpu_torch.testing import aggregates_in, eager_steps, heads_peak_bytes
 
     # 2. build --------------------------------------------------------------
     secs = banded_cuda.build(force=True)
@@ -1115,6 +1445,7 @@ def main() -> int:
           f"tables, bands): {host_s:.3f} s; DualGNN forward of one patch: "
           f"{fwd_ms:.3f} ms; 60 update iterations: {upd_ms:.3f} ms")
     del samples, sample
+    serve_graph_phase(torch, pred, mesh, kind)
 
     # 4. GPU vs CPU ------------------------------------------------------------
     vp_g, n_g = vp0, np0
@@ -1162,10 +1493,11 @@ def main() -> int:
         for side in ("v", "f")})
     nv, nf = (int(b.n_nodes) for b in mem.entries[0][:2])
     banded_cuda.reset_launches()
-    v_tb, n_tb = pred._apply(stripped)
-    assert sum(banded_cuda.LAUNCHES.values()) == 0
-    with aggregates_in(torch.float32):
-        v_bd, n_bd = pred._apply(patch0)
+    with eager_steps():  # aggregates_in swaps functions a replayed graph never calls
+        v_tb, n_tb = pred._apply(stripped)
+        assert sum(banded_cuda.LAUNCHES.values()) == 0
+        with aggregates_in(torch.float32):
+            v_bd, n_bd = pred._apply(patch0)
     assert sum(banded_cuda.LAUNCHES.values()) == sum(SERVE_LAUNCHES[0].values()) // 2
     mel0 = mel * float(mem.entries[0][2]["scale"])  # patch coordinates are normalized
     e_pos_t = float(np.abs(v_tb[:nv] - v_bd[:nv]).max()) / mel0
@@ -1232,7 +1564,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bwd_rows, fit_launches = [], {}
     for seeds, prefix in (((0, 6), ""), ((1, 2), "bs_")):
-        train = train_phase(torch, np, seeds, overfit=not prefix)
+        train = train_phase(torch, np, seeds, overfit=not prefix, kind=kind)
         mine = [check_backward(key, ent, gen)
                 for key, ent in sorted(train["captured"].items())
                 if key[0].startswith("bs_") == bool(prefix)]
@@ -1261,6 +1593,9 @@ def main() -> int:
     assert peaks[1] - peaks[0] >= 4.0
     del model, feat
     torch.cuda.empty_cache()
+
+    # 7b. the bench's shape: one graphed step on a union batch of 8 meshes ---------
+    union_phase(torch, np, kind)
 
     # 8. the run-directory path ---------------------------------------------------
     run = rundir_phase(torch, np)

@@ -120,10 +120,27 @@ inline unsigned elementwise_blocks(long long total) {
   return (unsigned)(blocks > 0 ? blocks : 1);
 }
 
+// Opts a kernel in to more than the default dynamic shared memory.  The
+// attribute holds for the process, so each kernel is opted in once per size
+// above the last: a launch captured into a CUDA graph then makes no such
+// call, the eager warm-up before the capture having made it.
 inline int set_smem(const void* kernel, int bytes) {
   if (bytes <= kDefaultSmem) return 0;
-  return (int)cudaFuncSetAttribute(
+  constexpr int kSlots = 64;
+  static const void* seen[kSlots];
+  static int seen_bytes[kSlots];
+  static int n_seen = 0;
+  int i = 0;
+  while (i < n_seen && seen[i] != kernel) ++i;
+  if (i < n_seen && seen_bytes[i] >= bytes) return 0;
+  const int err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == 0 && i < kSlots) {
+    seen[i] = kernel;
+    seen_bytes[i] = bytes;
+    if (i == n_seen) ++n_seen;
+  }
+  return err;
 }
 
 // The parts of one entry point's launch sequence, timed with CUDA events

@@ -220,15 +220,17 @@ __device__ __forceinline__ void row_batch(WalkState<kChunks, kBwd>& s,
 //             (gz = gy (n, ldk), or gout tiled over the heads), and zr for
 //             aggregate-first.
 // v, g, gz (aggregate-first) and zr are (n, ldk); dynamic shared memory:
-// kWalkWarps * ldk floats.
-template <bool kIndexed, int kChunks, bool kBwd>
+// kWalkWarps * ldk floats.  Every launch of an aggregate runs this kernel
+// once, so its template arguments — block-sparse, forward or backward,
+// transform-first — name the aggregate in a profile.
+template <bool kIndexed, int kChunks, bool kBwd, bool kTf>
 __global__ void __launch_bounds__(kWalkThreads)
 row_walk_kernel(const float* __restrict__ r, const float* __restrict__ p,
                 const float* __restrict__ v, const float* __restrict__ g,
                 const float* __restrict__ gz, const int8_t* __restrict__ m,
                 float* __restrict__ out, float* __restrict__ rbar,
                 float* __restrict__ zr, WindowMap<kIndexed> map, int n,
-                int heads, int cv, int ldk, int tf, int bf16) {
+                int heads, int cv, int ldk, int bf16) {
   extern __shared__ float4 smem4[];
   __shared__ int ring_s[kWalkWarps][kRing];
   const int warp = threadIdx.x >> 5;
@@ -270,7 +272,7 @@ row_walk_kernel(const float* __restrict__ r, const float* __restrict__ p,
                                        n, p, v, ldk, heads, lane, bf16);
   }
 
-  if (!tf) {  // zr = cd(z r), from the registers
+  if (!kTf) {  // zr = cd(z r), from the registers
 #pragma unroll
     for (int q = 0; q < kChunks; ++q) {
       const int col = q * kChunkCols + lane * 4;
@@ -287,7 +289,7 @@ row_walk_kernel(const float* __restrict__ r, const float* __restrict__ p,
       }
     }
   }
-  if (!kBwd && tf) {  // the head sum
+  if (!kBwd && kTf) {  // the head sum
     spill_acc<kChunks>(s.acc, zs, ldk, lane);
     for (int o = lane; o < cv; o += 32) {
       float acc = 0.f;
@@ -310,7 +312,7 @@ row_walk_kernel(const float* __restrict__ r, const float* __restrict__ p,
           const int k = col + e;
           o[e] = 0.f;
           if (k < kk) {
-            const float gzk = tf ? gz[i * cv + k % cv] : gz[i * ldk + k];
+            const float gzk = kTf ? gz[i * cv + k % cv] : gz[i * ldk + k];
             o[e] = cd(gzk * zq[e], bf16);
           }
         }
@@ -352,10 +354,12 @@ int launch_row_walk(const float* r, const float* p, const float* v,
                     int ldk, int tf, int bf16, cudaStream_t s) {
   return dispatch_chunks(ldk, [&](auto chunks) {
     const int smem = kWalkWarps * ldk * (int)sizeof(float);
-    auto kernel = row_walk_kernel<kIndexed, decltype(chunks)::value, kBwd>;
+    constexpr int kC = decltype(chunks)::value;
+    auto kernel = tf ? row_walk_kernel<kIndexed, kC, kBwd, true>
+                     : row_walk_kernel<kIndexed, kC, kBwd, false>;
     if (int err = set_smem((const void*)kernel, smem)) return err;
     kernel<<<(n + kWalkWarps - 1) / kWalkWarps, kWalkThreads, smem, s>>>(
-        r, p, v, g, gz, m, out, rbar, zr, map, n, heads, cv, ldk, tf, bf16);
+        r, p, v, g, gz, m, out, rbar, zr, map, n, heads, cv, ldk, bf16);
     return (int)cudaGetLastError();
   });
 }

@@ -48,8 +48,3 @@ def rotate_sample(sample: DualSample, rot: torch.Tensor) -> DualSample:
                          depth_direction=r3(sample.v.depth_direction))
     f = sample.f.replace(x=rot_x(sample.f.x), y=r3(sample.f.y))
     return sample.replace(v=v, f=f)
-
-
-def random_rotate(sample: DualSample, generator: torch.Generator,
-                  z_only: bool = False) -> DualSample:
-    return rotate_sample(sample, random_rotation_matrix(generator, z_only))

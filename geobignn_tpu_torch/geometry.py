@@ -25,13 +25,6 @@ def safe_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp(sq, min=EPS_NORMALIZE**2))
 
 
-def face_normals(points: torch.Tensor, fv_indices: torch.Tensor) -> torch.Tensor:
-    """Unit face normals: normalize(cross(v1-v0, v2-v0)); (F, 3)."""
-    fv = points[fv_indices]  # (F, 3, 3)
-    n = torch.linalg.cross(fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0], dim=-1)
-    return safe_normalize(n)
-
-
 # --------------------------------------------------------------------------
 # host (numpy) — preprocessing-time
 # --------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Counterpart of geobignn_tpu/infer/predict.py.  Per mesh: split into BFS
 patches of at most `sub_size` faces, build each patch's sample under one
 merged plan and one merged set of table widths (so every patch has the same
-shapes), run DualGNN on each patch, average the overlaps (int32 counters)
+shapes), run DualGNN on each patch (on the card, replays of one CUDA graph
+of the merged plan: `Predictor.forward`), average the overlaps (int32 counters)
 and un-permute the RCM order, denormalize, then run the 60-iteration vertex
 re-projection onto the predicted normal field, write `{name}-60.obj` and
 report the two angular errors.
@@ -12,7 +13,8 @@ report the two angular errors.
 snapshot of this package (`code_bak/geobignn_tpu_torch`, written by
 train/trainer.train), inference is version-pinned: the snapshot is imported
 in place of the live package, builds its kernels from its own `csrc/` into
-`code_bak/build/` and its native library from `code_bak/native/`, and
+`code_bak/build/` and its native library from `code_bak/native/` into
+`code_bak/build/native/`, and
 `predict_dir` puts the live package back when the batch is done.  A run
 directory written by the JAX package carries `code_bak/geobignn_tpu` only;
 that is never imported: its `params.json` and checkpoint are read and the
@@ -33,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from geobignn_tpu_torch import geometry, meshio
+from geobignn_tpu_torch import capture, geometry, meshio
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import builder, dataset as ds_mod
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
@@ -158,6 +160,7 @@ class Predictor:
         )
         self.model.load_state_dict(params)
         self.model.eval()
+        self._graph = None  # capture.Graph of the forward of the last plan
 
     @classmethod
     def from_run(cls, run_dir: str, sub_size: int | None = None,
@@ -180,9 +183,30 @@ class Predictor:
         state, _, _ = ckpt.load_checkpoint(path)
         return cls(cfg, state, sub_size, device)
 
+    @torch.no_grad()
+    def forward(self, sample):
+        """(positions, normals) of one padded sample, on the device.  On the
+        card, one replay of the CUDA graph of the sample's merged plan (the
+        JAX predictor's `jax.jit(model.apply)`): the patches of a mesh share
+        the plan, so the first runs eagerly, as the capture's warm-up, and
+        the others replay.  One graph is kept; a new plan replaces it.
+        A replay returns the graph's own output tensors, which the next call
+        overwrites: clone what is kept (`_apply` copies to the host).
+        Eager on the CPU and under testing.eager_steps()."""
+        sample = sample.to(self.device)
+        if self.device.type != "cuda" or capture.EAGER:
+            return self.model(sample)
+        graph = self._graph
+        if graph is not None and graph.key == capture.signature((sample,)):
+            return graph(sample)
+        self._graph = None  # the old graph's memory goes before the new capture
+        with capture.side_stream():
+            out = self.model(sample)
+        self._graph = capture.Graph(self.model, sample)
+        return out
+
     def _apply(self, sample):
-        with torch.no_grad():
-            vert_p, norm_p = self.model(sample.to(self.device))
+        vert_p, norm_p = self.forward(sample)
         return vert_p.cpu().numpy(), norm_p.cpu().numpy()
 
     # ------------------------------------------------------------------

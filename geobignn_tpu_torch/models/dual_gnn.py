@@ -247,9 +247,12 @@ class DualGNN(nn.Module):
             d = d * sample.v.depth_direction
         vert_p = d + xyz
 
-        # rebuild facet features from the denoised vertices (f32)
-        face_cent = tbl.table_gather(vert_p, sample.fv_indices, sample.fv_rev).mean(dim=1)
-        face_norm = geometry.face_normals(vert_p, sample.fv_indices)
+        # rebuild facet features from the denoised vertices (f32), both from
+        # the corners of one gather
+        corners = tbl.table_gather(vert_p, sample.fv_indices, sample.fv_rev)
+        face_cent = corners.mean(dim=1)
+        face_norm = geometry.safe_normalize(torch.linalg.cross(
+            corners[:, 1] - corners[:, 0], corners[:, 2] - corners[:, 0], dim=-1))
         x_f = torch.cat([sample.f.x, face_cent, face_norm], dim=1)
 
         feat_f = self.gnn_f(sample.f, x_f)

@@ -1,9 +1,19 @@
 """ctypes bindings for the repo's native mesh kernel (native/meshkernel.cpp).
 
 The port's own binding to the same C++ source the JAX package binds
-(geobignn_tpu/native.py).  It builds `native/libmeshkernel.so` with
-`make -C native` at first use, from the `native/` directory beside this
-package; `has_native()` reports whether the library is loaded.
+(geobignn_tpu/native.py).  At first use it builds its own copy of the
+library, with the rule and flags of `native/Makefile`, into
+`build/native/libmeshkernel-<hash>.so` beside the package (the hash is of
+the two sources), and never loads the JAX package's `native/libmeshkernel.so`;
+`has_native()` reports whether the library is loaded.
+
+Several processes may import the package at once (pytest workers, a
+trainer beside a server), so the build runs under an exclusive `fcntl`
+lock on `build/native/.lock`, into a temporary directory, and reaches its
+final path by `os.replace`, beside the digest of the finished file: a
+process never loads a file another one is still writing, and a file at the
+final path whose digest differs (one written there by other means, or cut
+short) is rebuilt under the same lock.
 
 The native and the numpy implementations draw different seeded visit orders
 in pool/hierarchy.greedy_matching, so they build different pooling
@@ -19,17 +29,71 @@ snapshot carries the sources for that reason
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 
 import numpy as np
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 SOURCE_FILES = ("meshkernel.cpp", "Makefile")
-_SO_PATH = os.path.join(NATIVE_DIR, "libmeshkernel.so")
+BUILD_DIR = os.path.join(os.path.dirname(NATIVE_DIR), "build", "native")
 
 _lib = None
 _tried = False  # one build attempt per process; a failed one is not retried
+
+
+def library_path() -> str:
+    """Where this package builds and loads its library: keyed on a hash of
+    the sources, so that an edited source never loads a stale build."""
+    digest = hashlib.sha256()
+    for name in SOURCE_FILES:
+        with open(os.path.join(NATIVE_DIR, name), "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libmeshkernel-{digest.hexdigest()[:16]}.so")
+
+
+def _digest(path: str) -> str:
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+def _build_and_open(path: str):
+    """The library at `path`, built there first unless the file there is
+    the one a build recorded (its digest in `path + ".sha256"`, which a
+    truncated or half-written file fails); under the exclusive lock, so one
+    process builds and the others wait for the finished file.  None when
+    the build fails."""
+    stamp = path + ".sha256"
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        whole = (os.path.exists(path) and os.path.exists(stamp)
+                 and open(stamp).read() == _digest(path))
+        if not whole:
+            tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+            try:
+                # the Makefile's own rule and flags, on a copy of the sources
+                for name in SOURCE_FILES:
+                    shutil.copy2(os.path.join(NATIVE_DIR, name), tmp)
+                subprocess.run(["make", "-s", "-C", tmp, "libmeshkernel.so"],
+                               check=True, capture_output=True)
+                built = os.path.join(tmp, "libmeshkernel.so")
+                with open(os.path.join(tmp, "stamp"), "w") as fh:
+                    fh.write(_digest(built))
+                os.replace(built, path)
+                os.replace(os.path.join(tmp, "stamp"), stamp)
+            except (OSError, subprocess.CalledProcessError):
+                return None
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        try:
+            return ctypes.CDLL(path)
+        except OSError:
+            return None
 
 
 def _load():
@@ -44,16 +108,8 @@ def _load():
             "the numpy implementations build other pooling hierarchies than the "
             "native ones")
     _tried = True
-    if not os.path.exists(_SO_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", NATIVE_DIR, "-s"], check=True, capture_output=True
-            )
-        except (OSError, subprocess.CalledProcessError):
-            return None
-    try:
-        lib = ctypes.CDLL(_SO_PATH)
-    except OSError:
+    lib = _build_and_open(library_path())
+    if lib is None:
         return None
 
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -83,7 +139,7 @@ def _ptr(a: np.ndarray, ctype):
 
 
 def has_native() -> bool:
-    """True when the native library is built (building it on first call)."""
+    """True when the native library is loaded (building it on first call)."""
     return _load() is not None
 
 

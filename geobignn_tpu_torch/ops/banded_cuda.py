@@ -561,15 +561,45 @@ def feast_conv_banded_kernel(params: dict, x, m, deg, *, compute_dtype=torch.bfl
     return self_loop_epilogue(num, x, params, deg)
 
 
-def _gather_unique(x, jnodes):
-    """(N, C) -> (S, C) row gather through the boundary node list."""
-    return x[jnodes]
+class _GatherUnique(torch.autograd.Function):
+    """(N, C) -> (S, C) row gather x[jnodes] whose backward is a gather too:
+    jnodes hits each real row at most once and jpos is its inverse
+    (sentinel S elsewhere), so the scatter-add transpose is pad(g)[jpos].
+    The trash slots jnodes repeats get no gradient: their rows never reach
+    the output (empty sub-band mask rows)."""
+
+    @staticmethod
+    def forward(ctx, x, jnodes, jpos):
+        ctx.save_for_backward(jpos)
+        return x[jnodes]
+
+    @staticmethod
+    def backward(ctx, g):
+        (jpos,) = ctx.saved_tensors
+        return tbl.zero_extended(g)[jpos], None, None
 
 
-def _scatter_add_unique(num, corr, jpos):
-    """num.at[jnodes].add(corr) as a gather: pad corr with one zero row, then
-    gather back through jpos (the inverse of jnodes, sentinel S elsewhere)."""
-    return num + torch.cat([corr, corr.new_zeros((1, corr.shape[1]))])[jpos]
+class _ScatterAddUnique(torch.autograd.Function):
+    """num.at[jnodes].add(corr) as a gather, num + pad(corr)[jpos] (the
+    contract of _GatherUnique); backward (ḡ, ḡ[jnodes])."""
+
+    @staticmethod
+    def forward(ctx, num, corr, jnodes, jpos):
+        ctx.save_for_backward(jnodes)
+        return num + tbl.zero_extended(corr)[jpos]
+
+    @staticmethod
+    def backward(ctx, g):
+        (jnodes,) = ctx.saved_tensors
+        return g, g[jnodes], None, None
+
+
+def _gather_unique(x, jnodes, jpos):
+    return _GatherUnique.apply(x, jnodes, jpos)
+
+
+def _scatter_add_unique(num, corr, jnodes, jpos):
+    return _ScatterAddUnique.apply(num, corr, jnodes, jpos)
 
 
 def feast_conv_hybrid_band(params: dict, x, m, jnodes, jband, jpos, deg, *,
@@ -584,10 +614,10 @@ def feast_conv_hybrid_band(params: dict, x, m, jnodes, jband, jpos, deg, *,
     p, r = factorized_softmax(x, params["u"], params["c"])
     num = banded_aggregate(r, p, x, params["w"], m, compute_dtype)
 
-    x_s = _gather_unique(x, jnodes)
+    x_s = _gather_unique(x, jnodes, jpos)
     p_s, r_s = factorized_softmax(x_s, params["u"], params["c"])
     corr = banded_aggregate(r_s, p_s, x_s, params["w"], jband, compute_dtype)
-    num = _scatter_add_unique(num, corr, jpos)
+    num = _scatter_add_unique(num, corr, jnodes, jpos)
     return self_loop_epilogue(num, x, params, deg)
 
 

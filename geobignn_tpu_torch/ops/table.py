@@ -1,16 +1,16 @@
 """Dense neighbor/member tables: host builders and torch gathers.
 
 Counterpart of geobignn_tpu/ops/table.py.  The host builders are copied
-unchanged (bit-identical tables).  On the device the gathers are plain
-indexing, and autograd differentiates them (its backward is a scatter-add).
-The JAX package gives `table_gather` a custom backward that gathers through
-the precomputed `rev` table because XLA's scatter is serial on a TPU, not
-because the gradient differs; the `rev` arguments are accepted so the call
-sites read like the JAX ones, and are unused.  One difference: the JAX
-backward drops the gradient of rows `rev` does not list (the trash slots),
-while autograd gives them one; every such row is a padded row, which the
-convs multiply by the node mask, so no parameter gradient changes
-(tests/test_torch_grads.py holds every parameter gradient against JAX).
+unchanged (bit-identical tables).  The gathers are `torch.autograd.Function`s
+with the JAX custom VJPs as their backward: the gradient of `x[nbr]` is
+itself a gather, through the precomputed reverse table `rev` of the
+zero-extended output gradient (`_tg_bwd`), or, for the boundary tables'
+compact source list, a gather through `rev_c` and one `index_add_` over the
+distinct sources `src_b` (`_tgc_bwd`).  Autograd's own backward of an index
+would be a scatter-add, whose sort and serial accumulation cost more on the
+card than the gather.  As in JAX, rows that `rev` does not list (the trash
+slots) get zero gradient.  Without `rev` a gather is plain indexing, as the
+JAX model calls it then.
 """
 
 from __future__ import annotations
@@ -25,20 +25,65 @@ from geobignn_tpu_torch.structs import round_up
 # the primitive
 # --------------------------------------------------------------------------
 
+def zero_extended(g: torch.Tensor) -> torch.Tensor:
+    """g flattened to (rows, C) with one zero row after it: the row that a
+    reverse table's padding value (or jpos's sentinel) points at."""
+    g = g.reshape(-1, g.shape[-1])
+    return torch.cat([g, g.new_zeros((1, g.shape[1]))])
+
+
+class _TableGather(torch.autograd.Function):
+    """x[nbr]; backward `_tg_bwd`: dx = pad(g)[rev].sum(1)."""
+
+    @staticmethod
+    def forward(ctx, x, nbr, rev):
+        ctx.save_for_backward(rev)
+        return x[nbr]
+
+    @staticmethod
+    def backward(ctx, g):
+        (rev,) = ctx.saved_tensors
+        return zero_extended(g)[rev].sum(dim=1), None, None
+
+
+class _TableGatherCompact(torch.autograd.Function):
+    """x[nbr]; backward `_tgc_bwd`: contrib = pad(g)[rev_c].sum(1), added
+    into the rows src_b lists."""
+
+    @staticmethod
+    def forward(ctx, x, nbr, src_b, rev_c):
+        ctx.save_for_backward(src_b, rev_c)
+        ctx.x_meta = (x.shape, x.dtype)
+        return x[nbr]
+
+    @staticmethod
+    def backward(ctx, g):
+        src_b, rev_c = ctx.saved_tensors
+        shape, dtype = ctx.x_meta
+        contrib = zero_extended(g)[rev_c].sum(dim=1)
+        dx = g.new_zeros(shape, dtype=dtype).index_add_(0, src_b, contrib.to(dtype))
+        return dx, None, None, None
+
+
 def table_gather(x: torch.Tensor, nbr: torch.Tensor, rev=None) -> torch.Tensor:
-    """out[..m, k] = x[nbr[..m, k]] (the JAX table_gather; its gradient is
-    autograd's scatter-add, so the reverse table `rev` is unused)."""
-    del rev
-    return x[nbr]
+    """out[..m, k] = x[nbr[..m, k]]; its gradient w.r.t. x gathers through
+    `rev` (positions into the flattened leading axes of out; the value
+    nbr.numel() means no reference and contributes zero), so rows `rev`
+    does not list get zero gradient.  Without `rev`, plain indexing."""
+    if rev is None:
+        return x[nbr]
+    return _TableGather.apply(x, nbr, rev)
 
 
 def table_gather_compact(x: torch.Tensor, nbr: torch.Tensor, src_b=None,
                          rev_c=None) -> torch.Tensor:
-    """x[nbr] for boundary-style tables (the JAX table_gather_compact, whose
-    backward runs over the compact source list `src_b` / `rev_c`; autograd's
-    scatter-add needs neither)."""
-    del src_b, rev_c
-    return x[nbr]
+    """x[nbr] for boundary-style tables, whose backward runs over the
+    compact source list: `src_b` (S,) the distinct sources (trash-padded),
+    `rev_c` (S, R) their positions in the flattened nbr (pad nbr.numel()).
+    Without them, plain indexing."""
+    if src_b is None or rev_c is None:
+        return x[nbr]
+    return _TableGatherCompact.apply(x, nbr, src_b, rev_c)
 
 
 # --------------------------------------------------------------------------
@@ -170,7 +215,7 @@ def gather_pool_max(x, members, rev, mmask):
     (only the trash row) fall back to 0, matching segment_max's
     fill_value=0 convention."""
     g = table_gather(x, members, rev)  # (n_out, m, C)
-    neg = torch.tensor(-torch.inf, dtype=g.dtype, device=g.device)
+    neg = g.new_full((), -torch.inf)  # a fill, no host copy (capture-safe)
     m = torch.where(mmask[..., None] > 0, g, neg).amax(dim=1)
     has = mmask.sum(dim=1) > 0
     return torch.where(has[:, None], m, torch.zeros((), dtype=m.dtype, device=m.device))

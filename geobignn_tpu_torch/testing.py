@@ -1,8 +1,11 @@
 """What the CPU tests, the card-only tests and chip_smoke.py share: the
 seeded edge cases of the window aggregates, and the means of holding a
 float32 step against a float64 one (`float64_sample`, `aggregates_in`,
-`grad_agreement`), and the model's rematerialization switched off
-(`without_remat`) or measured (`heads_peak_bytes`).
+`grad_agreement`, `same_branches`), the model's rematerialization switched off
+(`without_remat`) or measured (`heads_peak_bytes`), the eager step and
+forward in place of their CUDA graphs (`eager_steps`), and the JAX
+package's native path brought to the one this machine supports
+(`match_reference_native`).
 
 `edge_case_inputs`, made with numpy, so that the port-against-JAX tests and
 the kernels-against-plain checks hold the same cases:
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
+import time
 
 import numpy as np
 import torch
@@ -151,6 +156,81 @@ def grad_agreement(model, reference) -> dict:
     return out
 
 
+TIE_TOL = 1e-5  # of a row's scale: how far apart rounding may put two branches
+
+
+@contextlib.contextmanager
+def same_branches(choices: list, replay: bool):
+    """While open, the model's two piecewise functions — the max-pooling
+    (`table.gather_pool_max`) and the LeakyReLU (`dual_gnn._act`) — either
+    record, call by call, the branch they take (appended to `choices`: the
+    member each row and channel picks, the sign of each input), or, with
+    replay, take the recorded branch wherever their own differs.
+
+    The gradient of a max jumps where two members tie, that of a LeakyReLU
+    where its input crosses 0: two steps that round such a point apart (a
+    float32 and a float64 step, or two devices) differentiate different
+    branches, and their gradients differ by the jump, not by rounding.
+    Replaying the reference step's branches in the others holds them to
+    one; where nothing flips, values and gradients are those of the plain
+    functions.  Rematerialization is off while open, so that each call
+    runs once (its gradients are bit-equal either way).
+
+    Only a near-tie may be held: at each value replay flips, its own
+    branch's value and the recorded one's must lie within TIE_TOL of the
+    row's scale (the largest magnitude among a pooled node's members, or
+    among a node's activation inputs), else AssertionError — a branch taken
+    by a wider margin is a different result, not rounding.  Yields a
+    two-item list, filled once the run is done: the values that flipped,
+    and the largest of those distances over its row's scale."""
+    from geobignn_tpu_torch.models import dual_gnn
+    from geobignn_tpu_torch.ops import table
+
+    pool, act = table.gather_pool_max, dual_gnn._act
+    calls = iter(list(choices))
+    flips = [0, 0.0]
+
+    def held(own, plain, forced, scale):
+        """plain where own matches the recorded branch, else forced."""
+        if not replay:
+            choices.append(own.detach().cpu())
+            return plain
+        want = next(calls).to(own.device)
+        flip = own != want
+        alt = forced(want)
+        if bool(flip.any()):
+            gap = ((plain - alt).detach().abs() / scale.detach().clamp(min=1e-30))[flip]
+            worst = float(gap.max())
+            flips[0] += int(flip.sum())
+            flips[1] = max(flips[1], worst)
+            if worst > TIE_TOL:
+                raise AssertionError(
+                    f"a held branch is {worst:.3e} of its row's scale from the "
+                    f"step's own (TIE_TOL {TIE_TOL}): not a near-tie")
+        return torch.where(flip, alt, plain)
+
+    def max_pool(x, members, rev, mmask):
+        out = pool(x, members, rev, mmask)
+        g = table.table_gather(x, members, rev)
+        masked = torch.where(mmask[..., None] > 0, g, g.new_full((), -torch.inf))
+        has = (mmask.sum(dim=1) > 0)[:, None]
+        pick = torch.where(has, masked.argmax(dim=1), -1)
+        scale = torch.where(mmask[..., None] > 0, g.abs(), 0).amax(dim=(1, 2))[:, None]
+        return held(pick, out, lambda want: masked.gather(
+            1, want.clamp(min=0)[:, None]).squeeze(1), scale)
+
+    def leaky(v):
+        return held(v > 0, act(v), lambda want: torch.where(
+            want, v, v * dual_gnn.LEAKY_SLOPE), v.abs().amax(dim=-1, keepdim=True))
+
+    table.gather_pool_max, dual_gnn._act = max_pool, leaky
+    try:
+        with without_remat():
+            yield flips
+    finally:
+        table.gather_pool_max, dual_gnn._act = pool, act
+
+
 @contextlib.contextmanager
 def without_remat():
     """While open, the model keeps every intermediate for the backward: its
@@ -184,3 +264,50 @@ def heads_peak_bytes(model, feat: torch.Tensor, chunked: bool) -> int:
             return torch.cuda.max_memory_allocated() - base
     finally:
         model.fc_chunk_rows = rows
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """While open, the trainer and the predictor run their step and their
+    forward eagerly on the card, kernel by kernel, instead of capturing and
+    replaying a CUDA graph: the one switch, `capture.EAGER`, that tests and
+    chip_smoke.py compare the two with."""
+    from geobignn_tpu_torch import capture
+
+    eager = capture.EAGER
+    capture.EAGER = True
+    try:
+        yield
+    finally:
+        capture.EAGER = eager
+
+
+def match_reference_native(jax_native, timeout: float = 300.0) -> bool:
+    """Bring the JAX package's native module (passed in: this package
+    imports no JAX) to the path this machine supports, and return whether
+    that is the native library.
+
+    The JAX loader builds `native/libmeshkernel.so` in place at import and
+    fixes `HAS_NATIVE` then, so a process that imports it while another is
+    still writing the file reads False for its whole life and builds other
+    hierarchies than the port.  This builds the port's own library; where
+    that loads and the reference reads False, it reloads the reference
+    module until it loads too (another process may still be writing the
+    file).  The JAX package's graphs.py, pool/hierarchy.py and meshio.py
+    read `native.HAS_NATIVE` at call time, so the reload reaches them.
+    Neither side is put on a path the machine does not have: where the
+    port's library does not build, nothing is changed."""
+    from geobignn_tpu_torch import native
+
+    if not native.has_native():
+        return False
+    deadline = time.monotonic() + timeout
+    while not jax_native.HAS_NATIVE:
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"the port's native library loads, the JAX package's "
+                f"{jax_native.__file__} did not within {timeout} s")
+        importlib.reload(jax_native)
+        if not jax_native.HAS_NATIVE:
+            time.sleep(0.5)
+    return True

@@ -22,7 +22,10 @@ rules here:
     0.99), so `RMSprop` below writes optax's rule out.
 The trainer computes the learning rate on the host each epoch and writes it
 into every parameter group (`set_lr`), as the JAX trainer writes it into
-the injected hyperparameters.
+the injected hyperparameters.  On the card Adam is `capturable` and its
+learning rate a float32 tensor on the device, so that the trainer's CUDA
+graph of the step (train/trainer.py) reads the rate `set_lr` wrote last:
+a Python float would be baked into the graph at its capture.
 """
 
 from __future__ import annotations
@@ -64,8 +67,11 @@ def make_optimizer(cfg, params) -> torch.optim.Optimizer:
     params = list(params)
     wd = cfg.weight_decay or 0.0
     if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
-                                eps=1e-8, weight_decay=wd)
+        on_card = params[0].is_cuda
+        lr = (torch.tensor(cfg.lr, dtype=torch.float32, device=params[0].device)
+              if on_card else cfg.lr)
+        return torch.optim.Adam(params, lr=lr, betas=(cfg.beta1, cfg.beta2),
+                                eps=1e-8, weight_decay=wd, capturable=on_card)
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
                                dampening=0.0, weight_decay=wd)
@@ -75,10 +81,37 @@ def make_optimizer(cfg, params) -> torch.optim.Optimizer:
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
-    """Write the learning rate into every parameter group."""
+    """Write the learning rate into every parameter group: into its tensor
+    in place where the group holds one (a captured step reads it there)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
     return optimizer
+
+
+def get_lr(optimizer: torch.optim.Optimizer) -> float:
+    """The first parameter group's learning rate, as a float."""
+    return float(optimizer.param_groups[0]["lr"])
+
+
+def load_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """optimizer.load_state_dict, keeping what belongs to this device: the
+    `capturable` flag, its step counts on the parameters' device, and the
+    learning rate's tensor, into which the saved rate is written (a saved
+    group holds it as a float or an array)."""
+    kept = [(g.get("capturable"), g["lr"]) for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, (capturable, lr) in zip(optimizer.param_groups, kept):
+        saved = float(group["lr"])
+        group["lr"] = lr.fill_(saved) if torch.is_tensor(lr) else saved
+        if capturable is not None:
+            group["capturable"] = capturable
+        for p in group["params"] if capturable else ():
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(dtype=torch.float32, device=p.device)
 
 
 def lr_at_epoch(cfg, epoch: int) -> float:

@@ -10,9 +10,18 @@ no eval set), the best checkpoint on the eval normal error and a resume
 checkpoint every epoch, and the run directory's artefacts: `params.json`,
 the code snapshot `code_bak/`, `metrics.jsonl`, `training_info.txt`.
 
-The JAX trainer saves TPU dispatches with a fused step and a whole epoch in
-one `lax.scan`; here each step is one Python iteration with the same
-results.  Metrics accumulate on the device and sync once per epoch.  Every
+The JAX trainer runs a step in one dispatch (`fused_step`; a whole epoch
+in one `lax.scan`) when each optimizer step takes one sample.  Here, on the
+card, with `batch_size == 1` and Adam, `fused_step` replays one CUDA graph
+of the step — rotation, forward, loss, backward, the Adam update and the
+metric sums — per padded shape (capture.py); a run's samples share one
+plan, so one graph.  The first step of a shape runs eagerly, as the
+capture's warm-up.  `batch_size > 1` keeps the eager
+gradient/accumulate/apply loop, as the JAX trainer keeps three dispatches
+there; the CPU, SGD and RMSprop are eager; `testing.eager_steps()` makes
+the card eager too, for comparisons.  The two paths run the same
+operations on the same tensors.  Metrics accumulate on the device and sync
+once per epoch.  Every
 epoch draws `np.random.default_rng(seed * 100003 + epoch)`: the permutation
 first (so the shuffle equals the JAX trainer's), then one integer per step
 that seeds the rotation's torch.Generator.  With that, and the optimizer's
@@ -38,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from geobignn_tpu_torch import native
+from geobignn_tpu_torch import capture, native
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import augment
 from geobignn_tpu_torch.models import losses
@@ -118,6 +127,9 @@ class Trainer:
         self.best_error = float("inf")
         self._restored_plateau = None
         self._cache: dict = {}
+        self._graphs: dict = {}  # signature of a sample -> capture.Graph of its step
+        # the epoch's metric sums on the device (a captured step adds into them)
+        self._sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
 
     # ------------------------------------------------------------------
     def _get(self, ds, tag: str, idx: int):
@@ -127,15 +139,27 @@ class Trainer:
             self._cache[key] = ds.get(idx, self.plan).to(self.device)
         return self._cache[key]
 
-    def _step(self, sample, seed: int):
-        """Forward and backward of one sample; gradients add into .grad."""
-        if self.cfg.augment:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            sample = augment.random_rotate(sample, gen)
+    def _rotation(self, seed: int):
+        """The step's random rotation, drawn on the device from its seed
+        (None without augmentation)."""
+        if not self.cfg.augment:
+            return None
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return augment.random_rotation_matrix(gen)
+
+    def _backward(self, sample, rot):
+        """Forward and backward of one sample under rotation rot; gradients
+        add into .grad."""
+        if rot is not None:
+            sample = augment.rotate_sample(sample, rot)
         vert_p, norm_p = self.model(sample)
         loss, metrics = _metrics_of(vert_p, norm_p, sample, self.cfg)
         loss.backward()
         return metrics
+
+    def _step(self, sample, seed: int):
+        """Forward and backward of one sample; gradients add into .grad."""
+        return self._backward(sample, self._rotation(seed))
 
     def _apply(self, n_acc: int):
         """Mean of the accumulated gradients, one optimizer step."""
@@ -145,24 +169,68 @@ class Trainer:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
+    def _add_metrics(self, metrics) -> None:
+        for k in METRIC_KEYS:
+            self._sums[k] += metrics[k].detach()
+
+    def _captured_step(self, sample, rot) -> None:
+        """What the graph of a step holds: forward, backward (into .grad,
+        which is None at the capture, so each replay writes it anew), Adam
+        and the metric sums."""
+        self._add_metrics(self._backward(sample, rot))
+        self.optimizer.step()
+
+    def one_dispatch(self) -> bool:
+        """Whether a step runs as one CUDA graph: on the card, one sample
+        per optimizer step, Adam, and not under testing.eager_steps()."""
+        return (self.device.type == "cuda" and self.cfg.batch_size == 1
+                and isinstance(self.optimizer, torch.optim.Adam) and not capture.EAGER)
+
+    def fused_step(self, sample, seed: int) -> None:
+        """One optimizer step on one sample as a replay of its shape's CUDA
+        graph (the JAX `fused_step`); its metrics add into the epoch's sums.
+        The rotation is drawn outside the graph from the step's seed, as the
+        eager step draws it, and copied in.  The first step of a shape runs
+        eagerly on a side stream — the capture's warm-up — and then
+        captures the graph; a failed capture raises."""
+        rot = self._rotation(seed)
+        graph = self._graphs.get(capture.signature((sample, rot)))
+        if graph is not None:
+            graph(sample, rot)
+            return
+        self.optimizer.zero_grad(set_to_none=True)
+        with capture.side_stream():
+            self._add_metrics(self._backward(sample, rot))
+            self._apply(1)
+        graph = capture.Graph(self._captured_step, sample, rot)
+        self._graphs[graph.key] = graph
+        # the graph goes on writing the gradients it captured; outside it
+        # the parameters hold none, as after an eager step
+        self.optimizer.zero_grad(set_to_none=True)
+
     def run_epoch(self, rng: np.random.Generator, logger: MetricLogger | None = None):
         cfg = self.cfg
         order = rng.permutation(len(self.train_ds))
-        m_acc = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
+        for v in self._sums.values():
+            v.zero_()
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        fused = self.one_dispatch()
         t0 = time.time()
         n_acc = 0
         for step, idx in enumerate(order):
-            metrics = self._step(self._get(self.train_ds, "t", int(idx)),
-                                 int(rng.integers(1 << 31)))
+            sample = self._get(self.train_ds, "t", int(idx))
+            seed = int(rng.integers(1 << 31))
+            if fused:
+                self.fused_step(sample, seed)
+                continue
+            metrics = self._step(sample, seed)
             n_acc += 1
             if n_acc == cfg.batch_size or step == len(order) - 1:
                 self._apply(n_acc)
                 n_acc = 0
-            for k in METRIC_KEYS:
-                m_acc[k] += metrics[k].detach()
-        sums = torch.stack([m_acc[k] for k in METRIC_KEYS]).cpu().tolist()  # one sync
+            self._add_metrics(metrics)
+        sums = torch.stack([self._sums[k] for k in METRIC_KEYS]).cpu().tolist()  # one sync
         dt = max(time.time() - t0, 1e-9)
         n_steps = len(order)
         agg = {k: v / max(n_steps, 1) for k, v in zip(METRIC_KEYS, sums)}
@@ -245,7 +313,8 @@ class Trainer:
         state, opt_state, scalars = ckpt.load_checkpoint(path, with_opt=with_opt)
         self.model.load_state_dict(state)
         if with_opt and opt_state is not None:
-            self.optimizer.load_state_dict(opt_state)
+            optim.load_state(self.optimizer, opt_state)
+            self._graphs.clear()  # they hold the replaced state tensors
         self.epoch = int(scalars.get("epoch", -1)) + 1
         self.best_error = float(scalars.get("best_error", float("inf")))
         self._restored_plateau = scalars.get("plateau")

@@ -28,6 +28,16 @@ from geobignn_tpu.ops.feastconv import FeastParams
 from geobignn_tpu_torch.ops import banded as tbanded
 from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.structs import round_up
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
+
 
 HEADS = 9
 

@@ -49,6 +49,16 @@ from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.ops import blocksparse as tbs
 from geobignn_tpu_torch.structs import GraphLevel, round_up
 from geobignn_tpu_torch.train.trainer import _metrics_of
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
+
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # (C_in, C_out, heads): aggregate-first (wider, equal) and transform-first

@@ -19,6 +19,16 @@ import torch
 from geobignn_tpu import cli as jcli
 from geobignn_tpu_torch import cli, meshio
 from geobignn_tpu_torch.data import synth
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # shape names from the reference Synthetic manifest vocabulary: the list

@@ -40,6 +40,16 @@ from geobignn_tpu_torch.ops import feastconv as tfeast
 from geobignn_tpu_torch.ops import segment as tsegment
 from geobignn_tpu_torch.ops import table as ttable
 from geobignn_tpu_torch.structs import PoolStep, round_up
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
+
 
 HEADS = 9
 KEYS = ("u", "c", "w", "b")
@@ -231,8 +241,8 @@ def _hybrid_table_level(tile=32):
 
 
 def test_table_gather_compact_matches_jax():
-    """x[nbr_b] and its gradient on the real rows (the JAX backward drops
-    the trash row's, which no conv reads)."""
+    """x[nbr_b] and its gradient, which runs over the compact source list as
+    the JAX backward does: every row, the trash row's zero included."""
     arrs, _, n, n_band = _hybrid_table_level()
     rng = np.random.default_rng(8)
     x = rng.normal(size=(n_band, 6)).astype(np.float32)
@@ -242,11 +252,11 @@ def test_table_gather_compact_matches_jax():
         x_, j["nbr_b"], j["src_b"], j["rev_b"]), jnp.asarray(x))
     tx = torch.from_numpy(x).requires_grad_()
     got = ttable.table_gather_compact(
-        tx, torch.from_numpy(arrs["nbr_b"].astype(np.int64)))
+        tx, *(torch.from_numpy(arrs[k].astype(np.int64)) for k in ("nbr_b", "src_b", "rev_b")))
     np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
     got_g, = torch.autograd.grad(got, tx, torch.from_numpy(g))
-    _close(got_g.numpy()[: n_band - 1], np.asarray(vjp(jnp.asarray(g))[0])[: n_band - 1],
-           1e-6, "gradient")
+    _close(got_g.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), 1e-6, "gradient")
+    assert (got_g[n_band - 1] == 0).all()
 
 
 @SHAPES

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (banded and block-sparse, forward and backward)
-against their plain versions, on the card.
+against their plain versions, on the card; the trainer's and the
+predictor's CUDA graphs against their eager steps.
 
 Marked `cuda`: skips without an NVIDIA GPU.  This file imports only torch,
 numpy and the port (the card's machine has no JAX); run it there with
@@ -13,6 +14,8 @@ value), float32 within 1e-4 (summation order).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -390,3 +393,104 @@ def test_nearest_wrapper_converts_and_checks_before_any_launch(cuda_device):
     for metric in ("manhattan", "chebyshev", "cosine"):  # no kernel: plain torch
         assert losses.nearest_distance(a.float(), b, 128, metric).shape == (300,)
     assert banded_cuda.LAUNCHES["nearest"] == before + 1
+
+
+def _small_train_set():
+    """Patches of two noisy icosphere(3) meshes: every patch one plan."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import dataset
+
+    clean = synth.icosphere(3)
+    return dataset.InMemoryDataset(
+        [(synth.add_noise(clean, 0.2, seed=s), clean) for s in (0, 1)],
+        Config().build_config(), submesh_size=600)
+
+
+@pytest.mark.cuda
+def test_graphed_training_matches_eager_across_an_lr_change(cuda_device):
+    """Trainer.fit on the card replays one CUDA graph of the step; 3 epochs
+    with rotation on and the learning rate halved each epoch leave the same
+    parameters and Adam moments, bit for bit, as the eager steps."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    ds = _small_train_set()
+    cfg = Config(seed=0, max_epoch=3, lr_sch="exp", lr_decay=0.5)
+    graphed = Trainer(cfg, ds, None, device=cuda_device)
+    graphed.fit()
+    with eager_steps():
+        eager = Trainer(cfg, ds, None, device=cuda_device)
+        eager.fit()
+    assert len(graphed._graphs) == 1 and not eager._graphs
+    for a, b in zip(graphed.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(graphed.optimizer.state[a][k], eager.optimizer.state[b][k])
+
+
+@pytest.mark.cuda
+def test_a_replayed_step_reads_the_learning_rate_set_after_its_capture(cuda_device):
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.train import optim
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    ds = _small_train_set()
+    tr = Trainer(Config(seed=0), ds, None, device=cuda_device)
+    sample = tr._get(ds, "t", 0)
+    tr.fused_step(sample, 0)  # the eager warm-up, then the capture
+    tr.fused_step(sample, 1)
+    before = [p.detach().clone() for p in tr.model.parameters()]
+    optim.set_lr(tr.optimizer, 0.0)
+    tr.fused_step(sample, 2)
+    assert all(torch.equal(a, b) for a, b in zip(before, tr.model.parameters()))
+    optim.set_lr(tr.optimizer, 1e-2)
+    tr.fused_step(sample, 3)
+    assert not all(torch.equal(a, b) for a, b in zip(before, tr.model.parameters()))
+    assert len(tr._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_graphed_forward_matches_eager_and_counts_its_launches(cuda_device):
+    """Predictor.forward replays one graph per merged plan: the patches'
+    outputs equal the eager forward's; the wrappers count the first patch's
+    eager warm-up and its capture, and the device runs, by kernel name, the
+    eager forwards' launches (a profile sees each replay's)."""
+    import importlib.util
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.infer.predict import Predictor
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.testing import eager_steps
+
+    spec = importlib.util.spec_from_file_location("profile_train_step", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "profile_train_step.py"))
+    pts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pts)
+    state = DualGNN(fc_dtype=torch.bfloat16, device="cpu", seed=0).state_dict()
+    pred = Predictor(Config(), state, sub_size=600, device=cuda_device)
+    mem = pred.patch_dataset(synth.add_noise(synth.icosphere(3), 0.2, seed=0))
+    patches = [mem.get(i) for i in range(len(mem.entries))]
+    n = len(patches)
+    assert n > 1
+    counts = {}
+    for mode in ("graphed", "eager"):
+        banded_cuda.reset_launches()
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = [pred._apply(s) for s in patches]
+                torch.cuda.synchronize()
+        counts[mode] = (out, dict(banded_cuda.LAUNCHES),
+                        pts.aggregate_launches(pts.device_kernels(prof)))
+    graph = pred._graph
+    eager = {k: v for k, v in counts["eager"][1].items() if v}
+    assert eager and graph.replays == n - 1
+    assert {k: n * v for k, v in graph.launches.items() if v} == eager
+    assert counts["graphed"][1] == {k: 2 * v for k, v in graph.launches.items()}
+    assert counts["graphed"][2] == counts["eager"][2] == eager
+    for (vg, ng), (ve, ne) in zip(counts["graphed"][0], counts["eager"][0]):
+        np.testing.assert_array_equal(vg, ve)
+        np.testing.assert_array_equal(ng, ne)

@@ -42,6 +42,15 @@ from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.ops import banded as tbanded
 from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.train.trainer import _metrics_of
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
 
 
 def _sample(builder_mod, synth_mod, sub):

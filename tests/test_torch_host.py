@@ -9,7 +9,13 @@ visit order from it when built).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import fcntl
+import hashlib
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +30,16 @@ from geobignn_tpu_torch.data import builder as tbuilder
 from geobignn_tpu_torch.data import dataset as tdataset
 from geobignn_tpu_torch.data import synth as tsynth
 from geobignn_tpu_torch.ops import banded as tbanded
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def assert_bit_equal(a, b, path="sample"):
@@ -67,6 +83,51 @@ def _both(sub, sub_size, granularity=128):
 
 def test_native_path_matches():
     assert tnative.has_native() == jnative.HAS_NATIVE
+
+
+@pytest.mark.parametrize("stamp", ["absent", "of the whole file"])
+def test_a_half_written_library_is_never_loaded(tmp_path, monkeypatch, stamp):
+    """A library cut short at the port's build path, with no digest or the
+    digest of the whole file beside it, is rebuilt under the lock; only the
+    whole file is ever handed to the loader."""
+    assert tnative.has_native()
+    whole = open(tnative.library_path(), "rb").read()
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", False)
+    path = tnative.library_path()
+    with open(tmp_path / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        with open(path, "wb") as fh:
+            fh.write(whole[: len(whole) // 2])
+        if stamp != "absent":
+            with open(path + ".sha256", "w") as fh:
+                fh.write(hashlib.sha256(whole).hexdigest())
+    loaded = []
+    cdll = ctypes.CDLL
+    monkeypatch.setattr(ctypes, "CDLL", lambda p, *a, **kw: loaded.append(
+        open(p, "rb").read()) or cdll(p, *a, **kw))
+    assert tnative.has_native()
+    assert loaded and all(len(b) == len(whole) for b in loaded)
+    assert open(path + ".sha256").read() == hashlib.sha256(open(path, "rb").read()).hexdigest()
+    np.testing.assert_array_equal(tnative.permutation(97, 3), jnative.permutation(97, 3))
+
+
+def test_processes_building_at_once_all_load_the_library(tmp_path):
+    """Four processes that find no library build it once between them, under
+    the lock, and every one loads it."""
+    code = ("import sys, geobignn_tpu_torch.native as n\n"
+            "n.BUILD_DIR = sys.argv[1]\n"
+            "print(n.has_native(), n.permutation(11, 2).tolist())\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, text=True) for _ in range(4)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert len(set(outs)) == 1 and outs[0].startswith("True"), outs
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [".lock", os.path.basename(tnative.library_path()),
+         os.path.basename(tnative.library_path()) + ".sha256"])
 
 
 @pytest.mark.parametrize("max_tile,sub_size", [(384, 800), (64, 100000)],

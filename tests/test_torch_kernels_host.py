@@ -156,11 +156,11 @@ def _profile_module():
 
 
 @pytest.mark.parametrize("name,group", [
-    ("void (anonymous namespace)::row_walk_kernel<false, 3, false>(float const*)",
+    ("void (anonymous namespace)::row_walk_kernel<false, 3, false, true>(float const*)",
      "banded forward walk"),
-    ("void (anonymous namespace)::row_walk_kernel<(bool)0, (int)5, (bool)1>(float const*)",
+    ("void (anonymous namespace)::row_walk_kernel<(bool)0, (int)5, (bool)1, (bool)0>(float const*)",
      "banded backward row pass"),
-    ("void (anonymous namespace)::row_walk_kernel<true, 3, false>(float const*)",
+    ("void (anonymous namespace)::row_walk_kernel<true, 3, false, false>(float const*)",
      "block-sparse forward walk"),
     ("void (anonymous namespace)::col_walk_kernel<true, 3>(float const*)",
      "block-sparse backward column pass"),
@@ -178,6 +178,32 @@ def _profile_module():
 ])
 def test_profile_groups_kernels_by_their_present_names(name, group):
     assert _profile_module().kernel_group(name) == group
+
+
+@pytest.mark.parametrize("name,aggregate", [
+    ("void (anonymous namespace)::row_walk_kernel<false, 3, false, false>(float const*)",
+     "aggregate_first"),
+    ("void (anonymous namespace)::row_walk_kernel<false, 9, false, true>(float const*)",
+     "transform_first"),
+    ("void (anonymous namespace)::row_walk_kernel<(bool)0, (int)5, (bool)1, (bool)0>(float)",
+     "aggregate_first_bwd"),
+    ("void (anonymous namespace)::row_walk_kernel<true, 1, true, true>(float const*)",
+     "bs_transform_first_bwd"),
+    ("void (anonymous namespace)::row_walk_kernel<true, 3, false, false>(float const*)",
+     "bs_aggregate_first"),
+    ("void (anonymous namespace)::col_walk_kernel<false, 9>(float const*)", None),
+    ("void (anonymous namespace)::node_product_kernel<false, true, true, false>(ProductArgs)",
+     None),
+])
+def test_profile_names_the_aggregate_of_a_walk(name, aggregate):
+    """Each launch of an aggregate runs one walk kernel, whose template
+    arguments name the aggregate: chip_smoke.py counts a replayed graph's
+    launches by them."""
+    mod = _profile_module()
+    assert mod.aggregate_of(name) == aggregate
+    if aggregate is not None:
+        assert mod.aggregate_launches({name: (1.0, 3.0), "other": (1.0, 5.0)}) \
+            == {aggregate: 3}
 
 
 def test_profile_names_exist_in_the_sources():

@@ -28,6 +28,15 @@ from geobignn_tpu_torch.data import builder as tbuilder
 from geobignn_tpu_torch.data import synth as tsynth
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.ops import banded as tbanded
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
 
 
 def _sample(builder, synth, sub):

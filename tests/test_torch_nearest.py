@@ -28,6 +28,15 @@ from geobignn_tpu_torch.data import synth
 from geobignn_tpu_torch.infer import evaluate
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.ops import banded_cuda, nn_cuda
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
 
 
 def _case(name):

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from geobignn_tpu import geometry as jgeometry
@@ -26,6 +27,16 @@ from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import dataset as tdataset
 from geobignn_tpu_torch.infer import predict as tpredict
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
+
 
 SUB_SIZE = 800
 

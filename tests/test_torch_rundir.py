@@ -39,6 +39,16 @@ from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.train import checkpoint as ckpt
 from geobignn_tpu_torch.train import trainer as ttrainer
 from geobignn_tpu_torch.train.trainer import Trainer, train
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(granularity=16, sub_size=10 ** 6, augment=False)

@@ -29,6 +29,15 @@ from geobignn_tpu_torch.data import augment, builder, dataset, synth
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.train import optim
 from geobignn_tpu_torch.train.trainer import Trainer
+from geobignn_tpu import native as jnative
+from geobignn_tpu_torch import testing
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    """The JAX package's native path as this machine supports it: its
+    loader may have read a library another process was still writing."""
+    testing.match_reference_native(jnative)
 
 
 def _rel_err(got, want) -> float:
