@@ -125,12 +125,48 @@ non-zero without the final result line:
      bound (2 n m k float32 operations, k FMAs a pair, at 67 TFLOP/s) and
      the time of torch.cdist(a, b).min(dim=1), which materialises the
      matrix;
+ 11. [bf16], on both training sets after their phase 7:
+     Trainer(Config(precision="bfloat16")) — 20 graphed steps (5 epochs of
+     the 4 patches, counted and profiled as phase 7's fit) against the same
+     steps under eager_steps(), parameters and Adam's moments bit-equal;
+     one step on the card against the CPU's bf16 step (trained weights);
+     phase 7's tolerances; the graphed step on one patch (median, min,
+     max of 20) beside the
+     float32 one of the same call, busy share, mfu_pct, and the device time
+     of the dtype-converting copies (`direct_copy_kernel`, by name) in
+     both, whose difference holds the aggregates' upcasts;
+ 12. [fusion], seeds (0, 6): Config(fusion_features=16): serving noise
+     seed 0 as phase 3 (counted), against device="cpu"; a forward and
+     backward captured as a CUDA graph bit-equal to the eager one, that
+     against the CPU's in float32 compute (F32_GRAD_TOL, the CPU held to the
+     card's branches); the graphed training step's time;
+ 13. [bucket]: a corpus written here (icosphere 3, 4 and 5, noise seeds 1
+     and 2, 20,000-face patches) trained with preload=False,
+     buckets_growth=1.5, prefetch_depth=2, augment off, for 2 epochs
+     (counted): the buckets and their padded slots against one merged plan,
+     one CUDA graph per bucket plan with its bytes (static inputs, private
+     pool), s/step and edges/s; the epoch losses against the same run
+     preloaded on one merged plan, on the card and, its first epoch, on
+     the CPU (BUCKET_TOL);
+     the busy share of an epoch streamed against the same epoch preloaded;
+ 14. [dynamic], seeds (0, 6): Config(edge_weight_type=4): one step's
+     launches (level 1 only), Trainer.fit for 2 epochs (graphed, counted),
+     the graphed step beside the static model's and its device time by
+     kernel group (profile_train_step's groups), the 8 matchings' and
+     coalesces' time on the path's inputs, and one step against the CPU's:
+     the CPU's matchings held to the card's picks (testing.same_matchings:
+     at most MAX_REP_FLIPS, each differing call reproduced from the card's
+     weights, which lie within MATCH_WEIGHT_TOL of the CPU's, and every
+     pair of candidate edges the two rank apart a near-tie within it),
+     then the bf16-compute
+     tolerances of phase 7; the learned pooling parameters' gradients zero;
  10. one JSON line of the nine kernels, then the result line.  An
      aggregate's `launches` is what the device ran in the main path's runs
      (a profile, by kernel name: each launch runs one row_walk_kernel,
      whose template arguments name the aggregate): the forward ones from the
-     two served meshes, the backward ones from Trainer.fit; nearest's is
-     its wrapper's count in the evaluation, which no graph holds.
+     two served meshes, the backward ones from Trainer.fit, and both from
+     the counted runs of phases 11-14; nearest's is its wrapper's count in
+     the evaluation, which no graph holds.
 
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
 max|out| (both round the same operands to bf16, but a D summed in another
@@ -159,6 +195,23 @@ within testing.TIE_TOL (1e-5) of its row's scale, else the step fails, and
 at most MAX_HELD (16) values a step flip.  The block-sparse kernels are also held in place, float32 compute,
 against their own plain versions on the card: every parameter gradient
 within 1e-4.
+Phases 11 and 14 hold GPU against CPU with phase 7's bf16-compute bounds
+(the same operations on both devices, rounded at the same points; only
+the kernels' sums run in another order).  Phase 13's epoch losses, streamed
+over size buckets against one merged plan preloaded, on the card and on
+the CPU: within BUCKET_TOL (1e-3) relative — each bucket's plan pads its
+samples to other sizes and band tiles, which reorders the float sums of
+the aggregates and of the masked losses, and Adam carries the differences
+through the epoch (on the CPU the bf16 aggregate operands also round
+apart from the card's); the readings are 7.8e-5 on the card and 1.6e-5
+to 5.7e-5 on the CPU (PERF.md).  Phase 14's matchings: the card's and
+the CPU's edge weights come from activations whose bf16 aggregate
+operands round apart by up to one bf16 ulp, so MATCH_WEIGHT_TOL is 2^-8
+of the weights' scale, for the weights and for each pair of one node's
+candidate edges that the two devices rank apart (8.9e-4 read for the
+weights, PERF.md); a pick that differs through such a pair changes the
+partners along the proposals it sits in, and MAX_REP_FLIPS (48) is about
+three times the 17 read.
 The nearest-distance kernel's error is that of the expansion
 |a|^2 - 2 a.b + |b|^2, a few float32 ulps of the terms that cancel: squared
 distances within 1e-5 * max(|a|^2 + |b|^2); the root magnifies it for the
@@ -223,6 +276,15 @@ _BS = "geobignn_tpu/ops/blocksparse.py"
 # a float64 step (see the docstring)
 F32_GRAD_TOL = 2e-4
 MAX_HELD = 16  # values a step may hold to the card's branch (testing.same_branches)
+# epoch losses, streamed over size buckets against one merged plan preloaded,
+# on the card and on the CPU, relative (see the docstring)
+BUCKET_TOL = 1e-3
+# dynamic pooling, GPU vs CPU (testing.same_matchings; see the docstring):
+# the edge weights' distance and each pair of candidate edges ranked apart,
+# over the weights' scale: one bf16 ulp; and the representatives a step
+# may hold to the card's picks
+MATCH_WEIGHT_TOL = 2.0 ** -8
+MAX_REP_FLIPS = 48
 TPU_KERNEL = {  # file:line of the TPU kernel each CUDA kernel replaces
     "aggregate_first": f"{_PALLAS}:220", "transform_first": f"{_PALLAS}:104",
     "aggregate_first_bwd": f"{_PALLAS}:241", "transform_first_bwd": f"{_PALLAS}:141",
@@ -888,7 +950,7 @@ def train_phase(torch, np, seeds, overfit, kind):
     torch.cuda.empty_cache()
     graphs = graph_train_phase(torch, np, train_ds, seeds, kind)
     return {"captured": captured, "launches": launches, "step_ms": step_ms,
-            "graph": graphs}
+            "graph": graphs, "train_ds": train_ds}
 
 
 def _profiled(step, steps=5):
@@ -969,6 +1031,7 @@ def graph_train_phase(torch, np, train_ds, seeds, kind):
     copy_bytes = sum(t.numel() * t.element_size() for t in src)
     copy_ms = _cuda_ms(lambda: torch._foreach_copy_(dst[:len(src)], src), reps=20)
     prof_g = _profiled(lambda i: tr.fused_step(sample, i))
+    kernels_g = pts.profile_steps(lambda i: tr.fused_step(sample, i), 5)[1]
 
     def eager(i):
         tr._step(sample, i)
@@ -998,7 +1061,8 @@ def graph_train_phase(torch, np, train_ds, seeds, kind):
         print(f"[{tag}] eager step with {label}: index backward {ms:.3f} ms, "
               f"{n:.0f} launches; device total {prof[1]:.3f} ms, {prof[2]:.0f} kernels")
     assert np.isfinite([graphed["median_ms"], eager_t["median_ms"]]).all()
-    return {"graphed": graphed, "eager": eager_t, "mfu": mfu}
+    return {"graphed": graphed, "eager": eager_t, "mfu": mfu, "kernels": kernels_g,
+            "busy": prof_g[1] / prof_g[0]}
 
 
 def union_phase(torch, np, kind):
@@ -1384,6 +1448,476 @@ def check_nearest(torch, label, a, b, calls, reps, plain_reps, brute, library):
     return row
 
 
+# --------------------------------------------------------------------------
+# phases 11-14: bf16 activations, the fusion layer, streamed buckets,
+# dynamic pooling
+# --------------------------------------------------------------------------
+
+def _copies(kernels):
+    """(device ms, launches) of the dtype-converting copies among
+    device_kernels' result: torch's direct_copy_kernel, by name."""
+    hits = [(ms, n) for name, (ms, n) in kernels.items() if "direct_copy_kernel" in name]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+
+def _fit_both_ways(torch, cfg, train_ds):
+    """Trainer(cfg).fit graphed (counted) and under eager_steps(); returns
+    (graphed trainer, eager trainer, epoch losses of each, counts, bit-equal
+    parameters and Adam moments)."""
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    runs = {}
+    for mode in ("graphed", "eager"):
+        tr = Trainer(cfg, train_ds, None, device="cuda")
+        hist = []
+        with (eager_steps() if mode == "eager" else contextlib.nullcontext()), \
+                (_counted() if mode == "graphed" else contextlib.nullcontext({})) as cnt:
+            tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+        runs[mode] = (tr, hist, cnt)
+    (g, g_hist, cnt), (e, e_hist, _) = runs["graphed"], runs["eager"]
+    same = all(torch.equal(a, b) for a, b in zip(g.model.parameters(), e.model.parameters()))
+    same = same and all(torch.equal(g.optimizer.state[a][k], e.optimizer.state[b][k])
+                        for a, b in zip(g.model.parameters(), e.model.parameters())
+                        for k in ("exp_avg", "exp_avg_sq", "step"))
+    return g, e, g_hist, e_hist, cnt, same
+
+
+def _gpu_vs_cpu(tag, g, c, l_g, l_c, what):
+    """Phase 7's bf16-compute check, GPU against CPU: the loss within 1e-2
+    relative, every tensor but the convs' `u` within 5e-2 of its max|g| and
+    at a cosine of at least 0.99 (`u`'s gradient, a small difference of
+    large terms, is printed).  The learned pooling parameters, whose
+    gradients are zero, are left out."""
+    from geobignn_tpu_torch.testing import grad_agreement
+
+    stats = {k: v for k, v in grad_agreement(g, c).items() if ".pooling" not in k}
+    not_u = {k: v for k, v in stats.items() if not k.endswith(".u")}
+    worst = max(not_u, key=lambda k: not_u[k][0])
+    min_cos = min(not_u, key=lambda k: not_u[k][1])
+    min_cos_u = min(v[1] for k, v in stats.items() if k.endswith(".u"))
+    print(f"[{tag}] gradients GPU vs CPU, {what}: loss {l_g:.6f} vs {l_c:.6f}; worst "
+          f"tensor u aside {worst} {not_u[worst][0]:.3e} of its max|g|; smallest "
+          f"cosine u aside {min_cos} {not_u[min_cos][1]:.6f}, of the u {min_cos_u:.6f}")
+    assert abs(l_g - l_c) <= 1e-2 * abs(l_c)
+    assert not_u[worst][0] <= 5e-2 and not_u[min_cos][1] >= 0.99
+
+
+def bf16_phase(torch, np, train_ds, seeds, f32, kind):
+    """Phase 11, for one training set: Trainer(Config(precision="bfloat16"))
+    — 20 graphed steps (5 epochs of 4) against the same steps eager,
+    parameters and Adam moments bit-equal; one step on the card against the
+    CPU's bf16 step; the graphed step's time beside the float32 one's
+    (`f32`, from the graph phase of the same call), busy share, mfu_pct and
+    the device time of the dtype-converting copies.  Returns the device's
+    launches of the graphed fit."""
+    import itertools
+
+    import profile_train_step as pts
+
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.train import profiling, roofline
+    from geobignn_tpu_torch.train.trainer import Trainer, _metrics_of
+
+    tag = f"bf16{seeds}"
+    cfg = Config(seed=0, max_epoch=5, precision="bfloat16")
+    g, e, g_hist, e_hist, cnt, same = _fit_both_ways(torch, cfg, train_ds)
+    n_steps = cfg.max_epoch * len(train_ds)
+    (graph,) = g._graphs.values()
+    print(f"[{tag}] Trainer.fit, bf16 activations, {n_steps} steps graphed and eager: "
+          f"epoch losses graphed {[round(m['loss'], 6) for m in g_hist]}, eager "
+          f"{[round(m['loss'], 6) for m in e_hist]}; parameters and Adam's moments "
+          f"bit-equal {same}; the device ran {_nonzero(cnt['device'])}")
+    assert same and np.isfinite([m["loss"] for m in g_hist]).all()
+    assert cnt["device"] == {k: n_steps * TRAIN_SETS[seeds][k] for k in AGGREGATES}
+    assert graph.replays == n_steps - 1 and _replayed(cnt, graph, n_steps - 1, 1), cnt
+
+    # one step on the card against the CPU's bf16 step, on the trained weights
+    state = g.model.state_dict()
+    s0 = g._get(train_ds, "t", 0)
+    s0_cpu = train_ds.get(0, g.plan).to("cpu")
+    res = []
+    for smp in (s0, s0_cpu):
+        mdl = DualGNN(compute_dtype=torch.bfloat16, fc_dtype=torch.bfloat16,
+                      device=smp.v.x.device)
+        mdl.load_state_dict(state)
+        t0 = time.perf_counter()
+        loss = _metrics_of(*mdl(smp), smp, cfg)[0]
+        loss.backward()
+        res.append((mdl, float(loss.detach()), time.perf_counter() - t0))
+    _gpu_vs_cpu(tag, res[0][0], res[1][0], res[0][1], res[1][1],
+                f"bf16 activations, one patch (CPU {res[1][2]:.2f} s)")
+    del e, res
+
+    # per step on one patch, graphed: bf16 beside float32 (measured in the
+    # graph phase of this call)
+    tr = Trainer(Config(seed=0, precision="bfloat16"), train_ds, None, device="cuda")
+    sample = tr._get(train_ds, "t", 0)
+    it = itertools.count()
+    t = profiling.time_steps(lambda: tr.fused_step(sample, next(it)), steps=20)
+    step_ms, kernels = pts.profile_steps(lambda i: tr.fused_step(sample, i), 5)
+    dev_ms = sum(ms for ms, _ in kernels.values())
+    mfu = roofline.roofline(sample, t["median_ms"] / 1e3)
+    cp_ms, cp_n = _copies(kernels)
+    f32_cp_ms, f32_cp_n = _copies(f32["kernels"])
+    print(f"[{tag}] one graphed step on one 20,000-face patch, CUDA events: bf16 "
+          f"activations {_spread(t)}; float32 {_spread(f32['graphed'])}; card {kind}")
+    print(f"[{tag}] per step, profiler: bf16 {sum(n for _, n in kernels.values()):.0f} "
+          f"kernels, device {dev_ms:.3f} ms, busy share {dev_ms / step_ms:.3f}; float32 "
+          f"busy share {f32['busy']:.3f}; roofline at the median step {mfu}")
+    print(f"[{tag}] dtype-converting copies (direct_copy_kernel) per step: bf16 "
+          f"{cp_ms:.3f} ms in {cp_n:.0f} launches, float32 {f32_cp_ms:.3f} ms in "
+          f"{f32_cp_n:.0f}: the bf16 mode's casts, the aggregates' upcasts among "
+          f"them, {cp_ms - f32_cp_ms:.3f} ms")
+    assert np.isfinite(t["median_ms"]) and mfu["mfu_pct"] > 0
+    del g, tr
+    torch.cuda.empty_cache()
+    return cnt["device"]
+
+
+def _graphed_grads(torch, mdl, sample, cfg):
+    """The loss and every parameter's gradient of one forward and backward
+    captured as a CUDA graph (after an eager warm-up on a side stream) and
+    replayed once."""
+    from geobignn_tpu_torch import capture
+    from geobignn_tpu_torch.train.trainer import _metrics_of
+
+    params = list(mdl.parameters())
+
+    def step(s):
+        for p in params:
+            p.grad = None
+        loss = _metrics_of(*mdl(s), s, cfg)[0]
+        loss.backward()
+        return [loss.detach()] + [p.grad for p in params]
+
+    with capture.side_stream():
+        step(sample)
+    graph = capture.Graph(step, sample)
+    out = [t.clone() for t in graph(sample)]
+    for p in params:
+        p.grad = None
+    return out
+
+
+def fusion_phase(torch, np, train_ds, kind):
+    """Phase 12: Config(fusion_features=16).  Serving seed 0 through
+    predict_dir's body (counted as phase 3) and against device="cpu";
+    training: a graphed forward and backward bit-equal to the eager one on
+    the card, that against the CPU's float32 step (F32_GRAD_TOL, the CPU
+    held to the card's branches), and the graphed step's time.  Returns the
+    device's launches of the served mesh."""
+    import itertools
+
+    from geobignn_tpu_torch import geometry
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.infer import predict
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.testing import (aggregates_in, grad_agreement, same_branches,
+                                            without_remat)
+    from geobignn_tpu_torch.train import profiling
+    from geobignn_tpu_torch.train.trainer import Trainer, _metrics_of
+
+    tag = "fusion"
+    cfg = Config(fusion_features=16, seed=0)
+    state = DualGNN(fusion=16, fc_dtype=torch.bfloat16, device="cpu", seed=0).state_dict()
+    pred = predict.Predictor(cfg, state, device="cuda")
+    mesh, _, launches, _ = serve_phase(pred, 0, tag)
+    vp_g, n_g = pred.predict_mesh(mesh)
+    t0 = time.perf_counter()
+    vp_c, n_c = predict.Predictor(cfg, state, device="cpu").predict_mesh(mesh)
+    mel = geometry.mean_edge_length_np(mesh.points, mesh.ev_indices)
+    e_pos = float(np.abs(vp_g - vp_c).max()) / mel
+    e_n = float(np.abs(n_g - n_c).max())
+    print(f"[{tag}] GPU vs CPU predict_mesh (CPU {time.perf_counter() - t0:.2f} s): "
+          f"positions {e_pos:.3e} mean edge lengths (tol {POS_TOL_MEL}), normals "
+          f"{e_n:.3e} (tol {NORMAL_TOL})")
+    assert np.isfinite(vp_g).all() and e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
+    del pred
+
+    # training: float32 compute (aggregates and heads), as phase 7's check
+    tr = Trainer(cfg, train_ds, None, device="cuda")
+    s0 = tr._get(train_ds, "t", 0)
+    s0_cpu = train_ds.get(0, tr.plan).to("cpu")
+    f32_state = tr.model.state_dict()
+
+    def model(dev):
+        mdl = DualGNN(fusion=16, fc_dtype=torch.float32, device=dev)
+        mdl.load_state_dict(f32_state)
+        return mdl
+
+    with aggregates_in(torch.float32), without_remat():
+        graphed = _graphed_grads(torch, model("cuda"), s0, cfg)
+    picks: list = []
+    with aggregates_in(torch.float32), same_branches(picks, replay=False):
+        g = model("cuda")
+        loss_g = _metrics_of(*g(s0), s0, cfg)[0]
+        loss_g.backward()
+    eager = [loss_g.detach()] + [p.grad for p in g.parameters()]
+    bit = all(torch.equal(a, b) for a, b in zip(graphed, eager))
+    with aggregates_in(torch.float32), same_branches(picks, replay=True) as flips:
+        c = model("cpu")
+        loss_c = _metrics_of(*c(s0_cpu), s0_cpu, cfg)[0]
+        loss_c.backward()
+    st = grad_agreement(g, c)
+    w = max(st, key=lambda k: st[k][0])
+    print(f"[{tag}] one step, float32 compute: the graphed forward and backward "
+          f"bit-equal to the eager one {bit}; GPU vs CPU: loss {float(loss_g):.9f} vs "
+          f"{float(loss_c):.9f}, worst tensor {w} {st[w][0]:.3e} of its max|g| (tol "
+          f"{F32_GRAD_TOL}); the fusion layer's lin_v1.kernel "
+          f"{st['fusion.lin_v1.kernel'][0]:.3e}; branches held {flips[0]} (at most "
+          f"{MAX_HELD}), widest {flips[1]:.3e}")
+    assert bit and st[w][0] <= F32_GRAD_TOL and flips[0] <= MAX_HELD
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    del g, c, graphed, eager
+
+    it = itertools.count()
+    t = profiling.time_steps(lambda: tr.fused_step(s0, next(it)), steps=20)
+    print(f"[{tag}] one graphed training step (Config defaults, fusion_features=16) "
+          f"on one 20,000-face patch, CUDA events: {_spread(t)}; card {kind}")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _epoch_busy(torch, np, tr, rng_seed):
+    """(wall s, device ms) of one run_epoch: the wall time without the
+    profiler, then the device's kernel time of the same epoch under it."""
+    import profile_train_step as pts
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_epoch(np.random.default_rng(rng_seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.run_epoch(np.random.default_rng(rng_seed))
+        torch.cuda.synchronize()
+    dev = sum(ms for ms, _ in pts.device_kernels(prof).values())
+    return wall, dev
+
+
+def _graph_bytes(torch, graph):
+    """(static input bytes, private pool bytes) a capture.Graph holds on
+    the device: its static inputs, and the segments of its memory pool."""
+    from geobignn_tpu_torch.capture import tensors
+
+    inputs = sum(t.numel() * t.element_size() for t in tensors(graph.inputs))
+    pool = tuple(graph.graph.pool())
+    return inputs, sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def bucket_phase(torch, np, kind):
+    """Phase 13: a corpus written here (icosphere 3, 4 and 5, noise seeds 1
+    and 2), trained streamed (preload=False, prefetch_depth=2) over size
+    buckets (buckets_growth=1.5) for 2 epochs, augment off: buckets and
+    their padded slots against one merged plan; one graph per bucket and
+    its bytes; s/step and edges/s; the busy share of an epoch streamed
+    against the same epoch preloaded; the loss trajectory against the
+    preloaded, unbucketed run on the card and on the CPU.  Returns the
+    device's launches of the streamed fit."""
+    from geobignn_tpu_torch import meshio
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.data.dataset import DualDataset
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    tag = "bucket"
+    tmp = tempfile.mkdtemp(prefix="gbn_bucket_")
+    try:
+        root = os.path.join(tmp, "dataset")
+        split = os.path.join(root, "Synthetic", "train")
+        for sub in ("noisy", "original"):
+            os.makedirs(os.path.join(split, sub))
+        names = [f"ico{k}" for k in (3, 4, 5)]
+        for k, name in zip((3, 4, 5), names):
+            clean = synth.icosphere(k)
+            meshio.write_obj(os.path.join(split, "original", f"{name}.obj"),
+                             clean.points, clean.fv_indices)
+            for sd in (1, 2):
+                noisy = synth.add_noise(clean, 0.2, seed=sd)
+                meshio.write_obj(os.path.join(split, "noisy", f"{name}_n{sd}.obj"),
+                                 noisy.points, noisy.fv_indices)
+        with open(os.path.join(root, "Synthetic", "train_list.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        cfg = Config(seed=0, max_epoch=2, augment=False, preload=False,
+                     buckets_growth=1.5, prefetch_depth=2)
+
+        def dataset():
+            return DualDataset(root, "Synthetic", "train", "train_list.txt", 0,
+                               cfg.sub_size, cfg.build_config())
+
+        ds = dataset()
+        tr = Trainer(cfg, ds, None, device="cuda")
+        n_b = len(set(ds.bucket_of))
+        slots = {}
+        for i, b in enumerate(ds.bucket_of):
+            p = ds._bucket_plans[b]
+            slots.setdefault(b, [0, p.v.n1 + p.f.n1])[0] += 1
+        merged = ds.plan.v.n1 + ds.plan.f.n1
+        print(f"[{tag}] {len(ds)} samples from {len(names) * 2} meshes in {n_b} buckets "
+              f"(growth 1.5): per bucket (samples, padded vertex + facet slots) "
+              f"{[tuple(slots[b]) for b in sorted(slots)]} against {merged} slots of one "
+              f"merged plan; padded slots per epoch {sum(n * s for n, s in slots.values())} "
+              f"against {len(ds) * merged}")
+        hist = []
+        with _counted() as cnt:
+            tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+        graphs = list(tr._graphs.values())
+        held = [_graph_bytes(torch, g) for g in graphs]
+        for m in hist:
+            print(f"[{tag}] epoch: loss {m['loss']:.6f}; {1.0 / m['samples_per_s']:.4f} "
+                  f"s/step; edges/s {m['edges_per_s']:.4e} (streamed, under the profiler)")
+        print(f"[{tag}] {len(graphs)} CUDA graphs of the step, one per bucket plan: "
+              + "; ".join(f"{inp / 1e6:.1f} MB of static inputs + {pool / 1e6:.1f} MB "
+                          f"of private pool, replayed {g.replays} times"
+                          for g, (inp, pool) in zip(graphs, held))
+              + f"; the device ran {_nonzero(cnt['device'])}")
+        assert len(graphs) == n_b >= 3 and all(np.isfinite(m["loss"]) for m in hist)
+        assert all(pool > 0 for _, pool in held)
+        assert sum(g.replays for g in graphs) == cfg.max_epoch * len(ds) - n_b
+
+        # the same run preloaded and unbucketed, on the card (2 epochs) and on
+        # the CPU (the first epoch: its 20,000-face steps take seconds each)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            # the same seed: the same initial weights
+            trp = Trainer(cfg.with_updates(preload=True, buckets_growth=0.0,
+                                           max_epoch=cfg.max_epoch if dev == "cuda" else 1),
+                          dataset(), None, device=dev)
+            h = []
+            t0 = time.perf_counter()
+            trp.fit(on_epoch=lambda t, m, e: h.append(m["loss"]))
+            runs[dev] = (trp, h, time.perf_counter() - t0)
+        streamed = [m["loss"] for m in hist]
+        d_card = max(abs(a - b) / abs(b) for a, b in zip(streamed, runs["cuda"][1]))
+        d_cpu = max(abs(a - b) / abs(b) for a, b in zip(streamed, runs["cpu"][1]))
+        print(f"[{tag}] epoch losses streamed and bucketed {streamed}; preloaded, one "
+              f"merged plan, on the card {runs['cuda'][1]}, on the CPU {runs['cpu'][1]} "
+              f"({runs['cpu'][2]:.1f} s): largest relative difference {d_card:.3e} "
+              f"(card), {d_cpu:.3e} (CPU); tol {BUCKET_TOL}")
+        assert d_card <= BUCKET_TOL and d_cpu <= BUCKET_TOL
+
+        # busy share of an epoch, streamed and bucketed against preloaded
+        wall_s, dev_s = _epoch_busy(torch, np, tr, 7)
+        wall_p, dev_p = _epoch_busy(torch, np, runs["cuda"][0], 7)
+        print(f"[{tag}] one epoch of {len(ds)} steps: streamed {wall_s:.3f} s, device "
+              f"{dev_s:.3f} ms, busy share {dev_s / 1e3 / wall_s:.3f}; preloaded "
+              f"{wall_p:.3f} s, device {dev_p:.3f} ms, busy share "
+              f"{dev_p / 1e3 / wall_p:.3f}; card {kind}")
+        del tr, runs
+        torch.cuda.empty_cache()
+        return cnt["device"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dynamic_phase(torch, np, train_ds, static_ms, kind):
+    """Phase 14: Config(edge_weight_type=4) on the seeds-(0, 6) training
+    set: launches of one step (level 1 only), Trainer.fit for 2 epochs
+    (graphed, counted), the step's time beside the static model's, the
+    matchings' and coalesces' device time on the path's inputs, and one
+    step against the CPU's, its matchings held to the card's picks
+    (testing.same_matchings).  Returns the device's launches of the fit."""
+    import itertools
+
+    import profile_train_step as pts
+
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.ops import banded_cuda, matching
+    from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic, fill_missing_grads
+    from geobignn_tpu_torch.testing import same_matchings
+    from geobignn_tpu_torch.train import profiling
+    from geobignn_tpu_torch.train.trainer import Trainer, _metrics_of
+
+    tag = "dynamic"
+    cfg = Config(seed=0, max_epoch=2, edge_weight_type=4)
+    probe = Trainer(cfg.with_updates(augment=False), train_ds, None, device="cuda")
+    s0 = probe._get(train_ds, "t", 0)
+    calls: list = []
+    fn = matching.parallel_matching
+    matching.parallel_matching = lambda *a, **kw: calls.append((a, kw)) or fn(*a, **kw)
+    banded_cuda.reset_launches()
+    try:
+        probe._step(s0, 0)
+        probe._apply(1)
+        torch.cuda.synchronize()
+    finally:
+        matching.parallel_matching = fn
+    step = {k: banded_cuda.LAUNCHES[k] for k in AGGREGATES}
+    print(f"[{tag}] one step on one patch: the level-1 convs launched {_nonzero(step)}; "
+          f"{len(calls)} matchings")
+    assert sum(step.values()) > 0 and len(calls) == 8
+
+    # the matchings' and coalesces' device time on the path's inputs
+    match_ms = sum(_cuda_ms(lambda a=a, kw=kw: fn(*a, **kw), reps=10) for a, kw in calls)
+    reps = [fn(*a, **kw) for a, kw in calls]
+    coal_ms = sum(_cuda_ms(lambda a=a, r=r: matching.pool_edges_with_rep(a[0], a[1], r, a[2]),
+                           reps=10) for (a, _), r in zip(calls, reps))
+    print(f"[{tag}] per forward, CUDA events on the path's inputs: the 8 matchings "
+          f"(8 rounds each) {match_ms:.3f} ms, the 8 coalesces of the relabelled "
+          f"edges {coal_ms:.3f} ms")
+
+    tr = Trainer(cfg, train_ds, None, device="cuda")
+    hist = []
+    with _counted() as cnt:
+        tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+    n_steps = cfg.max_epoch * len(train_ds)
+    (graph,) = tr._graphs.values()
+    for m in hist:
+        print(f"[{tag}] epoch: loss {m['loss']:.6f}; {1.0 / m['samples_per_s']:.4f} "
+              f"s/step; edges/s {m['edges_per_s']:.4e}")
+    print(f"[{tag}] fit: the device ran {_nonzero(cnt['device'])}; the graph replayed "
+          f"{graph.replays} times")
+    assert cnt["device"] == {k: n_steps * step[k] for k in AGGREGATES}, cnt
+    assert graph.replays == n_steps - 1 and _replayed(cnt, graph, n_steps - 1, 1)
+    sample = tr._get(train_ds, "t", 0)
+    it = itertools.count()
+    t = profiling.time_steps(lambda: tr.fused_step(sample, next(it)), steps=20)
+    print(f"[{tag}] one graphed step on one 20,000-face patch, CUDA events: "
+          f"{_spread(t)}; the static model's {_spread(static_ms)}; card {kind}")
+    host_ms, kernels = pts.profile_steps(lambda i: tr.fused_step(sample, i), 3)
+    dev_ms = sum(ms for ms, _ in kernels.values())
+    groups = {k: f"{ms:.3f} ms in {n:.0f}" for k, (ms, n) in pts.groups_of(kernels).items()}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
+    print(f"[{tag}] per graphed step, profiler: device {dev_ms:.3f} ms, busy share "
+          f"{dev_ms / host_ms:.3f}; by group {groups}; the largest kernels "
+          + "; ".join(f"{name[:60]} {ms:.3f} ms in {n:.0f}" for name, (ms, n) in top))
+
+    # one step against the CPU's, on the trained weights
+    state = tr.model.state_dict()
+    s0_cpu = train_ds.get(0, tr.plan).to("cpu")
+    records: list = []
+    res = []
+    for smp, replay in ((s0, False), (s0_cpu, True)):
+        mdl = DualGNNDynamic(edge_weight_type=4, device=smp.v.x.device)
+        mdl.load_state_dict(state)
+        with same_matchings(records, replay=replay, weight_tol=MATCH_WEIGHT_TOL) as seen:
+            loss = _metrics_of(*mdl(smp), smp, cfg)[0]
+            loss.backward()
+        fill_missing_grads(mdl)
+        res.append((mdl, float(loss.detach()), seen))
+    seen = res[1][2]
+    print(f"[{tag}] representatives the CPU step picks apart from the card's, per "
+          f"matching (branch, level, round), held to the card's: "
+          f"{[c[0] for c in seen]} of {s0.v.x.shape[0]} / {s0.f.x.shape[0]} slots "
+          f"(at most {MAX_REP_FLIPS} in all); the edge weights at most "
+          f"{max(c[1] for c in seen):.3e} of their scale apart; candidate edges ranked "
+          f"apart {[c[2] for c in seen]}, each pair within {max(c[3] for c in seen):.3e} "
+          f"of the scale (tol {MATCH_WEIGHT_TOL:.3e} for both)")
+    assert sum(c[0] for c in seen) <= MAX_REP_FLIPS
+    _gpu_vs_cpu(tag, res[0][0], res[1][0], res[0][1], res[1][1],
+                "Config(edge_weight_type=4), one patch")
+    pool = [p.grad for mdl, _, _ in res for n, p in mdl.named_parameters() if ".pooling" in n]
+    assert len(pool) == 32 and not any(bool(g.any()) for g in pool)
+    del tr, probe, res
+    torch.cuda.empty_cache()
+    return cnt["device"]
+
+
 def main() -> int:
     import torch
 
@@ -1562,9 +2096,15 @@ def main() -> int:
 
     # 7. training ---------------------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bwd_rows, fit_launches = [], {}
+    bwd_rows, fit_launches, more = [], {}, []
     for seeds, prefix in (((0, 6), ""), ((1, 2), "bs_")):
         train = train_phase(torch, np, seeds, overfit=not prefix, kind=kind)
+        # 11-12, 14: the modes of this training set's patches
+        more.append(bf16_phase(torch, np, train["train_ds"], seeds, train["graph"], kind))
+        if not prefix:
+            more.append(fusion_phase(torch, np, train["train_ds"], kind))
+            more.append(dynamic_phase(torch, np, train["train_ds"],
+                                      train["graph"]["graphed"], kind))
         mine = [check_backward(key, ent, gen)
                 for key, ent in sorted(train["captured"].items())
                 if key[0].startswith("bs_") == bool(prefix)]
@@ -1592,6 +2132,10 @@ def main() -> int:
           f"piece, every intermediate kept (torch.cuda.max_memory_allocated)")
     assert peaks[1] - peaks[0] >= 4.0
     del model, feat
+    torch.cuda.empty_cache()
+
+    # 13. streamed size buckets ---------------------------------------------------
+    more.append(bucket_phase(torch, np, kind))
     torch.cuda.empty_cache()
 
     # 7b. the bench's shape: one graphed step on a union batch of 8 meshes ---------
@@ -1627,6 +2171,7 @@ def main() -> int:
         else:
             mine = [r for r in rows if r["kernel"] == name]
             n_l = (launches1 if name.startswith("bs_") else launches)[name]
+        n_l += sum(m[name] for m in more)  # the main paths of phases 11-14
         assert mine and n_l > 0, name
         kernels.append(_kernel_entry(name, mine, n_l))
     path_row = nn_rows[0]

@@ -63,16 +63,21 @@ def signature(tree) -> tuple:
     return ("static", tree)
 
 
-def static_copy(tree):
-    """A copy of the tree with every tensor cloned (the static buffers)."""
+def map_tensors(fn, tree):
+    """The tree with fn applied to every tensor (other leaves kept)."""
     if torch.is_tensor(tree):
-        return tree.clone()
+        return fn(tree)
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
-            f.name: static_copy(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+            f.name: map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
     if isinstance(tree, (tuple, list)):
-        return type(tree)(static_copy(v) for v in tree)
+        return type(tree)(map_tensors(fn, v) for v in tree)
     return tree
+
+
+def static_copy(tree):
+    """A copy of the tree with every tensor cloned (the static buffers)."""
+    return map_tensors(torch.clone, tree)
 
 
 @contextlib.contextmanager
@@ -98,7 +103,9 @@ class Graph:
         self.key = signature(inputs)
         before = dict(LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # thread_local: a prefetch worker (data/prefetch.py) goes on copying
+        # the next samples on its own stream while this thread captures
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outputs = fn(*self.inputs)
         # the launches the wrappers recorded into the graph, by kernel
         self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}

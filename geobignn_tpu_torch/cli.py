@@ -28,6 +28,7 @@ from geobignn_tpu_torch.config import Config
 
 def _apply_extras(cfg_dict: dict, extras: list[str]) -> dict:
     known = {f.name for f in dataclasses.fields(Config)}
+    bools = {f.name: isinstance(f.default, bool) for f in dataclasses.fields(Config)}
     for arg in extras:
         if not arg.startswith("--") or "=" not in arg:
             raise SystemExit(f"unrecognized argument: {arg}")
@@ -41,6 +42,10 @@ def _apply_extras(cfg_dict: dict, extras: list[str]) -> dict:
             cfg_dict[k] = json.loads(v)
         except json.JSONDecodeError:
             cfg_dict[k] = v
+        # `--preload=False` is the bool False here (JSON alone reads the
+        # truthy string "False", which the JAX CLI passes on)
+        if bools.get(k) and isinstance(cfg_dict[k], str) and v.lower() in ("true", "false"):
+            cfg_dict[k] = v.lower() == "true"
     return cfg_dict
 
 
@@ -102,6 +107,10 @@ def main(argv=None):
     if args.cmd == "train":
         cfg = _config_of(args, extras)
         run_dir = train(cfg, device=args.device)
+        if cfg.dynamic_pool or cfg.edge_weight_type in (3, 4, 5):
+            # the predictor serves the static DualGNN only, as the JAX one
+            print(f"{run_dir}: trained with dynamic pooling; no inference is chained")
+            return
         predict_dir(run_dir, dataset_root=cfg.dataset_dir, device=args.device)
     elif args.cmd == "infer":
         predict_dir(args.run_dir, args.data_dir, args.dataset_root, args.sub_size,

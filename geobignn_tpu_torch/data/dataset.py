@@ -7,8 +7,8 @@ disk-backed `DualDataset` with its content-hashed preprocessing cache, copied
 so that patches, padded samples and cache files are identical to the JAX
 package's: the same file names (`_file_key` of the noisy .obj, `_config_key`
 of the BuildConfig) and the same arrays, so either package reads a cache the
-other wrote.  Size bucketing (`bucketize`) is not ported yet (ROADMAP:
-modules to port, the rest of the package).
+other wrote; and size bucketing (`bucketize`): one SizePlan and TableWidths
+per geometric size bucket, computed as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import dataclasses
 import glob
 import hashlib
 import json
+import math
 import os
 import sys
 from collections import Counter
@@ -267,6 +268,7 @@ class BaseDualDataset:
     plan: structs.SizePlan | None
     widths: "builder.TableWidths | None" = None
     tables: bool = True
+    bucket_of: list | None = None  # entry -> bucket id (bucketize())
 
     def _compute_plan(self, granularity: int):
         plan, widths = None, None
@@ -281,6 +283,33 @@ class BaseDualDataset:
         self.plan = plan
         self.widths = widths
 
+    def bucketize(self, growth: float = 1.5) -> int:
+        """Group entries into geometric size buckets, each with its own
+        merged SizePlan and TableWidths; `get(idx)` then pads an entry to its
+        bucket's plan instead of the dataset-wide one.  With `growth`-spaced
+        bucket edges the padding is bounded by the growth factor, at the
+        cost of one padded shape (one CUDA graph of the step) per bucket.
+        Returns the number of buckets."""
+        if growth <= 1.0:
+            raise ValueError("growth must be > 1")
+        sizes = [bv.n_nodes + bf.n_nodes for bv, bf, _, _, _ in self.entries]
+        base = max(min(sizes), 1)
+        raw = [int(math.floor(math.log(s / base) / math.log(growth) + 1e-9)) for s in sizes]
+        buckets = sorted(set(raw))
+        remap = {b: i for i, b in enumerate(buckets)}
+        self.bucket_of = [remap[r] for r in raw]
+        gran = self.build_cfg.granularity
+        self._bucket_plans = [None] * len(buckets)
+        self._bucket_widths = [None] * len(buckets)
+        for i, (bv, bf, meta, _, _) in enumerate(self.entries):
+            b = self.bucket_of[i]
+            p = builder.plan_for(bv, bf, gran)
+            w = builder.widths_for(bv, bf, meta["fv_indices"], with_bands=self.build_cfg.reorder)
+            self._bucket_plans[b] = p if self._bucket_plans[b] is None else self._bucket_plans[b].merge(p)
+            self._bucket_widths[b] = (w if self._bucket_widths[b] is None
+                                      else self._bucket_widths[b].merge(w))
+        return len(buckets)
+
     def __len__(self) -> int:
         return len(self.entries)
 
@@ -293,6 +322,9 @@ class BaseDualDataset:
     def get(self, idx: int, plan: structs.SizePlan | None = None) -> structs.DualSample:
         bv, bf, meta, _, _ = self.entries[idx]
         widths = getattr(self, "widths", None)
+        if plan is None and self.bucket_of is not None:
+            plan = self._bucket_plans[self.bucket_of[idx]]
+            widths = self._bucket_widths[self.bucket_of[idx]]
         plan = plan or self.plan
         gv = builder._pad_branch(bv, plan.v)
         gf = builder._pad_branch(bf, plan.f)

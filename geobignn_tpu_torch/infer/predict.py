@@ -147,6 +147,9 @@ class Predictor:
 
     def __init__(self, cfg: Config, params: dict, sub_size: int | None = None,
                  device=None):
+        if getattr(cfg, "dynamic_pool", False) or getattr(cfg, "edge_weight_type", 10) in (3, 4, 5):
+            raise ValueError("the Predictor serves the static DualGNN, as the JAX one: "
+                             "a model trained with dynamic pooling is not served")
         self.cfg = cfg
         self.sub_size = sub_size or cfg.sub_size
         self.device = resolve_device(device)
@@ -276,7 +279,7 @@ class Predictor:
         """Full pipeline: predict + integrate normals; returns (V, Np)."""
         if (halo_parts and halo_parts > 1) or halo_banded:
             not_ported("halo-sharded inference (halo_parts, halo_banded)",
-                       "modules to port, item 6, halo and multi-chip paths")
+                       "modules to port, item 7, multi-device and halo paths")
         vp, np_arr = self.predict_mesh(mesh_n)
         dev = self.device
         depth = None

@@ -14,9 +14,11 @@ so params.py moves weights across by renaming keys only.
 Every conv of the default configuration runs the banded aggregate
 (ops/banded_cuda.py) or, at a level that carries `blk_idx`, the block-sparse
 one (ops/blocksparse.py); levels without a band run the table or COO conv
-(ops/feastconv.py, plain torch).  What this port does not have yet (the
-fusion layer) raises NotImplementedError naming the ROADMAP item; nothing
-quietly takes another path.
+(ops/feastconv.py, plain torch).  With `fusion > 0` a DualFusionLayer
+(models/fusion.py) exchanges features over the vertex<->facet incidence and
+its outputs are concatenated onto both branch inputs; `compute_dtype`
+bfloat16 runs the U-Nets' activations in bf16 (Config(precision=
+"bfloat16")), with float32 parameters, geometry and losses.
 
 Rematerialization, as the JAX module has it: the convs of levels without a
 band (their (E, C) gathered residuals dominate device memory on big meshes)
@@ -38,7 +40,7 @@ from geobignn_tpu_torch import geometry, params as params_mod
 from geobignn_tpu_torch.ops import banded_cuda, blocksparse, feastconv, segment
 from geobignn_tpu_torch.ops import table as tbl
 from geobignn_tpu_torch.structs import BranchGraph, DualSample, GraphLevel
-from geobignn_tpu_torch.utils import not_ported, resolve_device
+from geobignn_tpu_torch.utils import resolve_device
 
 LEAKY_SLOPE = 0.2  # reference uses F.leaky_relu(x, 0.2) throughout
 
@@ -213,15 +215,16 @@ class DualGNN(nn.Module):
                  fc_dtype=None, device=None, seed: int = 0,
                  fc_chunk_rows: int = 1 << 18):
         super().__init__()
-        if fusion:
-            not_ported("the DualFusionLayer (fusion > 0, models/fusion.py)",
-                       "modules to port, the rest of the package")
         dev = resolve_device(device)
         self.force_depth = force_depth
         self.fc_chunk_rows = fc_chunk_rows
         fdt = fc_dtype or compute_dtype
-        self.gnn_v = GNNModule(6, pool_type, heads, compute_dtype, dev)
-        self.gnn_f = GNNModule(12, pool_type, heads, compute_dtype, dev)
+        if fusion:
+            from geobignn_tpu_torch.models.fusion import DualFusionLayer
+
+            self.fusion = DualFusionLayer(6, 6, fusion, dev)
+        self.gnn_v = GNNModule(6 + fusion, pool_type, heads, compute_dtype, dev)
+        self.gnn_f = GNNModule(12 + fusion, pool_type, heads, compute_dtype, dev)
         self.fc_v1 = Dense(32, 1024, fdt, dev)
         self.fc_v2 = Dense(1024, 1 if force_depth else 3, fdt, dev)
         self.fc_f1 = Dense(32, 1024, fdt, dev)
@@ -241,7 +244,11 @@ class DualGNN(nn.Module):
 
     def forward(self, sample: DualSample):
         xyz = sample.v.x[:, :3]
-        feat_v = self.gnn_v(sample.v, sample.v.x)
+        x_v, h_f = sample.v.x, None
+        if hasattr(self, "fusion"):
+            h_v, h_f = self.fusion(sample.v.x, sample.f.x, sample)
+            x_v = torch.cat([x_v, h_v], dim=1)
+        feat_v = self.gnn_v(sample.v, x_v)
         d = self._run_head(self.fc_v1, self.fc_v2, feat_v)
         if self.force_depth:
             d = d * sample.v.depth_direction
@@ -253,7 +260,8 @@ class DualGNN(nn.Module):
         face_cent = corners.mean(dim=1)
         face_norm = geometry.safe_normalize(torch.linalg.cross(
             corners[:, 1] - corners[:, 0], corners[:, 2] - corners[:, 0], dim=-1))
-        x_f = torch.cat([sample.f.x, face_cent, face_norm], dim=1)
+        parts_f = [sample.f.x, face_cent, face_norm] + ([h_f] if h_f is not None else [])
+        x_f = torch.cat(parts_f, dim=1)
 
         feat_f = self.gnn_f(sample.f, x_f)
         n = self._run_head(self.fc_f1, self.fc_f2, feat_f)

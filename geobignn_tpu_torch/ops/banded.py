@@ -413,19 +413,31 @@ def factorized_softmax(x: torch.Tensor, u: torch.Tensor, c: torch.Tensor):
     per-node halves of the FeaSt head softmax (max-shifted per node).  The
     shifts are detached, as the JAX package's stop_gradient: the aggregate
     is invariant to a per-node scaling of p and r, so no gradient flows
-    through them."""
+    through them.
+
+    `x @ u` comes out in x's dtype; the shifts and exponentials run in at
+    least float32 and p and r are rounded to that dtype once, as XLA runs
+    the JAX function's elementwise chain in one fusion without rounding
+    its intermediates.  In bf16 that keeps the cotangent of `a`, a small
+    difference of the p and r terms, from being rounded before the
+    subtraction."""
     a = x @ u  # (N, H)
-    p = torch.exp(a - a.amax(dim=1, keepdim=True).detach())
-    ca = c - a
-    r = torch.exp(ca - ca.amax(dim=1, keepdim=True).detach())
+    af = a.to(torch.promote_types(a.dtype, torch.float32))
+    p = torch.exp(af - af.amax(dim=1, keepdim=True).detach()).to(a.dtype)
+    ca = c.to(af.dtype) - af
+    r = torch.exp(ca - ca.amax(dim=1, keepdim=True).detach()).to(a.dtype)
     return p, r
 
 
 def self_loop_epilogue(num, x, params, deg):
-    """Add the implicit self-loop term, mean over N(i) + {i}, add the bias."""
+    """Add the implicit self-loop term, mean over N(i) + {i}, add the bias.
+    The self-loop product comes out in num's dtype, as the JAX convs'
+    `preferred_element_type`: float32 after the banded and block-sparse
+    aggregates (bf16 operands, products exact in float32), x's dtype after
+    the table and COO sums."""
     s_self = torch.softmax(params["c"], dim=0)
     w_self = torch.einsum("h,hio->io", s_self, params["w"])
-    out = num + x @ w_self
+    out = num + x.to(num.dtype) @ w_self.to(num.dtype)
     out = out / (deg + 1.0)[:, None]
     return out + params["b"]
 

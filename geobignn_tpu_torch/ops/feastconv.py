@@ -9,7 +9,8 @@ and `feast_conv` when a sample carries no tables at all.
     with s = softmax(c), the implicit self-loop (edge lists store none).
 
 `params` is the dict the banded convs take: u (C_in, H), c (H,),
-w (H, C_in, C_out), b (C_out,).  Gradients are autograd's.  The JAX
+w (H, C_in, C_out), b (C_out,).  Gradients are autograd's, through the
+sorted-sum backwards of `segment.take_rows` in the COO conv.  The JAX
 function's edge-partition mode (`psum_axis`, graph parallel) is not ported.
 """
 
@@ -27,16 +28,22 @@ def feast_conv(params: dict, x: torch.Tensor, edge_index: torch.Tensor, *,
     """x: (N, C_in) with a zero trash row; edge_index: (2, E) [dst, src], no
     self-loops; deg: (N,) real-edge in-degree, counted if None.  Returns
     (N, C_out).  One segment sum of the (E, H*C_in) outer product, as the
-    JAX function's fused-heads branch."""
+    JAX function's fused-heads branch.  The edges are first put in row order
+    by a stable argsort (the identity on the row-sorted lists of host-built
+    levels and compacted coalesce outputs; a reordered level's lists are
+    not sorted), so the sums are sorted segment sums and the gathers'
+    backwards are too: no atomics, and no serial run over the trash padding
+    (ops/segment.py)."""
     n, c_in = x.shape
     heads = params["c"].shape[0]
-    row, col = edge_index[0], edge_index[1]
-    x_j = x[col]
-    q = torch.softmax((x_j - x[row]) @ params["u"] + params["c"], dim=-1)  # (E, H)
+    order = torch.argsort(edge_index[0], stable=True)
+    row, col = edge_index[0][order], edge_index[1][order]
+    x_j, x_i = segment.take_rows(x, col), segment.take_rows(x, row, sorted=True)
+    q = torch.softmax((x_j - x_i) @ params["u"] + params["c"], dim=-1)  # (E, H)
     if deg is None:
-        deg = segment.segment_count(row, n, dtype=x.dtype)
+        deg = segment.segment_count(row, n, dtype=x.dtype, sorted=True)
     big = (q[:, :, None] * x_j[:, None, :]).reshape(row.shape[0], heads * c_in)
-    z = segment.segment_sum(big, row, n).reshape(n, heads, c_in)
+    z = segment.segment_sum(big, row, n, sorted=True).reshape(n, heads, c_in)
     num = torch.einsum("nhc,hco->no", z, params["w"])
     return self_loop_epilogue(num, x, params, deg)
 

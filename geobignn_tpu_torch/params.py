@@ -8,8 +8,10 @@ with dots ("gnn_v.l_conv1.u", "fc_v1.kernel") and keeps the same layouts,
 so moving weights is a renaming.
 
 `init_` follows flax's initialisers in distribution (not in bits — the two
-frameworks' generators differ): Glorot-uniform conv `w`, normal x 0.1 `u`,
-zero `c` and `b`, LeCun-normal (truncated) Dense kernels, zero Dense biases.
+frameworks' generators differ): Glorot-uniform conv `w` and dynamic pooling
+`att_l` / `att_r`, normal x 0.1 `u`, zero `c` and `b`, LeCun-normal
+(truncated) Dense kernels (the heads, the fusion layer, pooling `lin`),
+zero Dense biases.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def _trunc_normal(shape, std, gen):
 
 @torch.no_grad()
 def init_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
-    """Seeded init of a DualGNN's parameters in place, drawn on the CPU from
+    """Seeded init of a model's parameters in place, drawn on the CPU from
     one torch.Generator (so every device gets the same weights)."""
     gen = torch.Generator().manual_seed(seed)
     for name, prm in model.named_parameters():
@@ -84,6 +86,9 @@ def init_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
         elif leaf == "w":  # glorot_uniform over (H, C_in, C_out): fan = C*H
             heads, c_in, c_out = shape
             limit = math.sqrt(6.0 / (heads * c_in + heads * c_out))
+            val = (torch.rand(shape, generator=gen) * 2 - 1) * limit
+        elif leaf in ("att_l", "att_r"):  # glorot_uniform over (1, C)
+            limit = math.sqrt(6.0 / (shape[0] + shape[1]))
             val = (torch.rand(shape, generator=gen) * 2 - 1) * limit
         elif leaf == "kernel":  # lecun_normal, truncated
             std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978

@@ -1,16 +1,27 @@
-"""Edge-weight strategies for graph-coarsening affinity (host, numpy).
+"""Edge-weight strategies for graph-coarsening affinity.
 
-Counterpart of the numpy branch of geobignn_tpu/pool/edge_weight.py: the
-11 `edge_weight_type` strategies (-1..10) evaluated at data-prep time when
-building the precomputed pooling hierarchies.  Types that depend on layer
-activations use the input features as proxy; the learned-attention types
-(3, 4, 5) degrade to the stored weight, as in the JAX host path.  The shipped
-model uses type 10: stored bilateral weight + exp(-||x_i - x_j||^2 / 2).
+Counterpart of geobignn_tpu/pool/edge_weight.py: the 11 `edge_weight_type`
+strategies (-1..10) of the reference's PoolingLayer
+(code/net_util.py:160-240).  The shipped model uses type 10: stored
+bilateral weight + exp(-||x_i - x_j||^2 / 2).  Two call sites, as there:
+
+  * the host (numpy arrays), when the precomputed pooling hierarchies are
+    built: types that depend on layer activations use the input features
+    as proxy, and the learned types (3, 4, 5) degrade to the stored weight;
+  * the device (torch tensors), for dynamic pooling (pool/dynamic.py),
+    where every type is exact, the learned ones with `att_l`, `att_r` and
+    `lin`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _exp(v):
+    return torch.exp(v) if torch.is_tensor(v) else np.exp(v)
 
 
 def _minmax(w, eps=1e-12):
@@ -19,20 +30,34 @@ def _minmax(w, eps=1e-12):
 
 def _feat_gauss(x, edge_index, param):
     d = x[edge_index[0]] - x[edge_index[1]]
-    return np.exp((d * d).sum(-1) / (-param))
+    return _exp((d * d).sum(-1) / (-param))
+
+
+def _gat_scores(x, edge_index, att_l, att_r):
+    """Symmetrized GAT-style attention logit -> sigmoid."""
+    al = (x * att_l).sum(-1)
+    ar = (x * att_r).sum(-1)
+    row, col = edge_index[0], edge_index[1]
+    alpha = (al[row] + ar[col]) + (al[col] + ar[row])
+    return 1.0 / (1.0 + _exp(-alpha))
 
 
 def compute_edge_weight(
     weight_type: int,
-    edge_index: np.ndarray,
-    stored_weight: np.ndarray | None,
-    x: np.ndarray | None = None,
+    edge_index,
+    stored_weight,
+    x=None,
     wei_param: float = 2.0,
+    att_l=None,
+    att_r=None,
+    lin=None,
 ):
-    """Evaluate one strategy on numpy arrays.
+    """Evaluate one strategy on numpy arrays or torch tensors.
 
     edge_index: (2, E) with NO self-loops (the reference strips them before
-    weighting, code/net_util.py:163)."""
+    weighting, code/net_util.py:163).  The learned types take att_l, att_r
+    (1, C) and, for 4 and 5, `lin` (a callable: the Dense layer); without
+    att_l they return the stored weight (the host's fallback)."""
     t = weight_type
     if t == -1:
         return None  # random matching
@@ -42,8 +67,14 @@ def compute_edge_weight(
         return _feat_gauss(x, edge_index, wei_param)
     if t == 2:
         return stored_weight * _feat_gauss(x, edge_index, wei_param)
-    if t in (3, 4, 5):  # learned types: host fallback to the stored weight
-        return stored_weight
+    if t in (3, 4, 5):
+        if att_l is None:  # host fallback for learned types
+            return stored_weight
+        xx = x
+        if t in (4, 5) and lin is not None:
+            xx = F.leaky_relu(lin(x), 0.2)
+        w = _gat_scores(xx, edge_index, att_l, att_r)
+        return (w + stored_weight) / 2.0 if t == 5 else w
     if t == 6:
         return _minmax(stored_weight)
     if t == 7:

@@ -1,7 +1,8 @@
 """What the CPU tests, the card-only tests and chip_smoke.py share: the
 seeded edge cases of the window aggregates, and the means of holding a
 float32 step against a float64 one (`float64_sample`, `aggregates_in`,
-`grad_agreement`, `same_branches`), the model's rematerialization switched off
+`grad_agreement`, `same_branches`), a step on one device held to another's
+dynamic-pooling picks (`same_matchings`), the model's rematerialization switched off
 (`without_remat`) or measured (`heads_peak_bytes`), the eager step and
 forward in place of their CUDA graphs (`eager_steps`), and the JAX
 package's native path brought to the one this machine supports
@@ -229,6 +230,84 @@ def same_branches(choices: list, replay: bool):
             yield flips
     finally:
         table.gather_pool_max, dual_gnn._act = pool, act
+
+
+def ranked_apart(edge_index: torch.Tensor, w_ref: torch.Tensor, w: torch.Tensor):
+    """(pairs, widest) for the edges of one node that `w` ranks in the other
+    order than `w_ref` does — the only way a matching sees its weights is
+    each node's ranking of its edges by (weight, -col), self-loops and
+    trash padding left out: the number of edges that `w` puts below one
+    that `w_ref` ranks under them, and the widest such gap in `w`, over
+    max|w_ref|."""
+    row, col = (t.cpu().numpy() for t in edge_index)
+    scale = max(float(w_ref.abs().max()), 1e-30)
+    w_ref, w = (t.detach().double().cpu().numpy() / scale for t in (w_ref, w))
+    real = row != col
+    row, col, w_ref, w = row[real], col[real], w_ref[real], w[real]
+    order = np.lexsort((-col, w_ref, row))
+    # a running max of w along each node's run in w_ref's order: rows
+    # shifted 4 apart (|w| <= about 1 after the scaling) keep runs apart
+    key = row[order] * 4.0 + w[order]
+    prev = np.concatenate([[-np.inf], np.maximum.accumulate(key)[:-1]])
+    gap = prev - key
+    return int((gap > 0).sum()), float(max(gap.max(initial=0.0), 0.0))
+
+
+@contextlib.contextmanager
+def same_matchings(records: list, replay: bool, weight_tol: float):
+    """While open, dynamic pooling's matchings (`ops.matching.
+    parallel_matching`, as pool/dynamic.py calls it) either record, call by
+    call, their representatives and the edge weights they were given
+    (appended to `records`), or, with replay, return the recorded
+    representatives in place of their own.
+
+    Two steps on two devices weigh the edges from activations that agree
+    to rounding, and a near-tie between two candidate edges of a node can
+    then pick another partner.  Replay holds the second step to the first
+    one's picks, and shows each call whose picks differ to be such a case:
+    the same matching on the recorded weights gives the recorded picks (so
+    the picks differ through the weights alone); the weights lie within
+    `weight_tol` of the recorded ones' scale; and every pair of candidate
+    edges of a node that the two weight vectors rank in the other order
+    (`ranked_apart`) lies within `weight_tol` of that scale, so each
+    differing pick comes from near-ties.  Else AssertionError.  Yields a
+    list, filled as the run goes: per call, (representatives that differ,
+    the weights' largest distance over their scale, edges ranked apart,
+    the widest of their gaps over the scale)."""
+    from geobignn_tpu_torch.ops import matching
+
+    fn = matching.parallel_matching
+    calls = iter(list(records))
+    seen: list = []
+
+    def held(edge_index, w, n_pad, *args, **kw):
+        rep = fn(edge_index, w, n_pad, *args, **kw)
+        if not replay:
+            records.append((rep.cpu(), None if w is None else w.detach().cpu()))
+            return rep
+        want, w_ref = next(calls)
+        want = want.to(rep.device)
+        n_diff, gap, pairs, widest = int((rep != want).sum()), 0.0, 0, 0.0
+        if w is not None:
+            w_ref = w_ref.to(w.device)
+            gap = float((w.detach() - w_ref).abs().max()) / max(float(w_ref.abs().max()), 1e-30)
+            pairs, widest = ranked_apart(edge_index, w_ref, w)
+        if n_diff:
+            again = fn(edge_index, w_ref, n_pad, *args, **kw)
+            if not torch.equal(again, want) or gap > weight_tol or widest > weight_tol:
+                raise AssertionError(
+                    f"{n_diff} representatives differ, and not by a near-tie: the "
+                    f"recorded weights give the recorded picks {torch.equal(again, want)}, "
+                    f"the weights {gap:.3e} of their scale apart, {pairs} edges ranked "
+                    f"apart by up to {widest:.3e} of it (tol {weight_tol})")
+        seen.append((n_diff, gap, pairs, widest))
+        return want
+
+    matching.parallel_matching = held
+    try:
+        yield seen
+    finally:
+        matching.parallel_matching = fn
 
 
 @contextlib.contextmanager

@@ -28,10 +28,16 @@ that seeds the rotation's torch.Generator.  With that, and the optimizer's
 moments and step counts and the plateau state in `ckpt_last.pkl`, a run
 restored from it continues on the trajectory of an uninterrupted one.
 
+The modes of the JAX trainer, routed as there: `precision="bfloat16"`
+(bf16 activations through the U-Nets), `fusion_features` (DualGNN's fusion
+layer), dynamic pooling (`dynamic_pool` or `edge_weight_type` 3-5:
+pool/dynamic.DualGNNDynamic; the pooling parameters the loss does not
+reach get zero gradients, as jax.grad gives them), and streaming
+(`preload=False`): each epoch's samples are padded and copied by a worker
+thread `prefetch_depth` steps ahead (data/prefetch.py), into one SizePlan
+per size bucket with `buckets_growth > 1` (one CUDA graph per bucket plan).
 Not ported yet, and refused with NotImplementedError rather than taking
-another path: halo training, dynamic pooling, multi-device meshes,
-`precision="bfloat16"`, size bucketing and streaming with prefetch
-(`preload=False`).
+another path: halo training and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -49,9 +55,10 @@ import torch
 
 from geobignn_tpu_torch import capture, native
 from geobignn_tpu_torch.config import Config
-from geobignn_tpu_torch.data import augment
+from geobignn_tpu_torch.data import augment, prefetch
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic, fill_missing_grads
 from geobignn_tpu_torch.train import checkpoint as ckpt
 from geobignn_tpu_torch.train import optim
 from geobignn_tpu_torch.train.logging import MetricLogger, Tee
@@ -90,21 +97,9 @@ class Trainer:
     def __init__(self, cfg: Config, train_ds, eval_ds=None, run_dir: str | None = None,
                  device=None):
         cfg.validate()
-        if cfg.dynamic_pool or cfg.edge_weight_type in (3, 4, 5):
-            not_ported("dynamic pooling (edge_weight_type 3-5, dynamic_pool)",
-                       "modules to port, item 7, dynamic pooling")
         if cfg.dcn * cfg.dp * cfg.gp > 1:
             not_ported("multi-device training (dp * gp * dcn > 1)",
-                       "modules to port, item 6, halo and multi-chip paths")
-        if cfg.precision == "bfloat16":
-            not_ported("precision='bfloat16'",
-                       "modules to port, item 5, the precision='bfloat16' mode")
-        if cfg.buckets_growth > 1.0:
-            not_ported("size bucketing (buckets_growth > 1)",
-                       "modules to port, item 8, the rest of the package: bucketing")
-        if not cfg.preload:
-            not_ported("streaming with prefetch (preload=False, data/prefetch.py)",
-                       "modules to port, item 8, the rest of the package: data/prefetch.py")
+                       "modules to port, item 7, multi-device and halo paths")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_ds = train_ds
@@ -113,12 +108,28 @@ class Trainer:
         self.plan = train_ds.plan
         if eval_ds is not None and eval_ds.plan is not None:
             self.plan = self.plan.merge(eval_ds.plan)
-        self.model = DualGNN(
-            force_depth=cfg.force_depth, pool_type=cfg.pool_type, heads=cfg.heads,
-            fusion=cfg.fusion_features,
-            fc_dtype=torch.bfloat16 if cfg.fc_precision == "bfloat16" else None,
-            device=self.device, seed=cfg.seed or 0,
-        )
+        # bucketed streaming: per-bucket plans instead of one merged plan
+        # (each dataset buckets on its own; get(idx, None) pads to the
+        # entry's bucket plan)
+        self.bucketed = cfg.buckets_growth > 1.0 and not cfg.preload
+        if self.bucketed:
+            n_b = train_ds.bucketize(cfg.buckets_growth)
+            if eval_ds is not None and len(eval_ds):
+                eval_ds.bucketize(cfg.buckets_growth)
+            print(f"bucketed SizePlans: {n_b} train buckets (growth {cfg.buckets_growth})")
+        if cfg.dynamic_pool or cfg.edge_weight_type in (3, 4, 5):
+            self.model = DualGNNDynamic(
+                force_depth=cfg.force_depth, pool_type=cfg.pool_type, heads=cfg.heads,
+                edge_weight_type=cfg.edge_weight_type, wei_param=cfg.wei_param,
+                device=self.device, seed=cfg.seed or 0)
+        else:
+            self.model = DualGNN(
+                force_depth=cfg.force_depth, pool_type=cfg.pool_type, heads=cfg.heads,
+                fusion=cfg.fusion_features,
+                compute_dtype=torch.bfloat16 if cfg.precision == "bfloat16" else torch.float32,
+                fc_dtype=torch.bfloat16 if cfg.fc_precision == "bfloat16" else None,
+                device=self.device, seed=cfg.seed or 0,
+            )
         self.optimizer = optim.make_optimizer(cfg, self.model.parameters())
         # real (unpadded) conv messages per sample, for edges/s each epoch
         self._msgs = (train_ds.messages_per_sample()
@@ -133,11 +144,21 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _get(self, ds, tag: str, idx: int):
-        """Padded sample on the device, cached (cfg.preload)."""
+        """Padded sample on the device, cached (the preloaded path)."""
+        plan = None if self.bucketed else self.plan
         key = (tag, idx)
         if key not in self._cache:
-            self._cache[key] = ds.get(idx, self.plan).to(self.device)
+            self._cache[key] = ds.get(idx, plan).to(self.device)
         return self._cache[key]
+
+    def _samples(self, ds, tag: str, order):
+        """Samples in `order`; streaming pads and copies `prefetch_depth`
+        samples ahead on a worker thread (data/prefetch.py)."""
+        if self.cfg.preload:
+            return (self._get(ds, tag, int(i)) for i in order)
+        plan = None if self.bucketed else self.plan
+        return prefetch.device_iter(order, lambda i: ds.get(int(i), plan), self.device,
+                                    self.cfg.prefetch_depth)
 
     def _rotation(self, seed: int):
         """The step's random rotation, drawn on the device from its seed
@@ -155,6 +176,7 @@ class Trainer:
         vert_p, norm_p = self.model(sample)
         loss, metrics = _metrics_of(vert_p, norm_p, sample, self.cfg)
         loss.backward()
+        fill_missing_grads(self.model)
         return metrics
 
     def _step(self, sample, seed: int):
@@ -218,8 +240,7 @@ class Trainer:
         fused = self.one_dispatch()
         t0 = time.time()
         n_acc = 0
-        for step, idx in enumerate(order):
-            sample = self._get(self.train_ds, "t", int(idx))
+        for step, sample in enumerate(self._samples(self.train_ds, "t", order)):
             seed = int(rng.integers(1 << 31))
             if fused:
                 self.fused_step(sample, seed)
@@ -249,8 +270,7 @@ class Trainer:
         self.model.eval()
         keys = ("loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f")
         sums = {k: torch.zeros((), device=self.device) for k in keys}
-        for i in range(len(self.eval_ds)):
-            sample = self._get(self.eval_ds, "e", i)
+        for sample in self._samples(self.eval_ds, "e", range(len(self.eval_ds))):
             m = _metrics_of(*self.model(sample), sample, self.cfg)[1]
             for k, n in (("loss_v", "n_v"), ("error_v", "n_v"),
                          ("loss_f", "n_f"), ("error_f", "n_f")):
@@ -376,7 +396,7 @@ def train(cfg: Config, dataset_root: str | None = None, device=None) -> str:
     cfg.validate()
     if cfg.halo_parts and cfg.halo_parts > 1:
         not_ported("halo training (halo_parts > 1)",
-                   "modules to port, item 6, halo and multi-chip paths")
+                   "modules to port, item 7, multi-device and halo paths")
 
     resume_dir = find_resumable_run(cfg) if cfg.auto_resume else None
     run_dir = resume_dir or make_run_dir(cfg)

@@ -146,6 +146,29 @@ def test_campaign_entry_end_to_end(tmp_path, monkeypatch):
         assert os.path.exists(os.path.join(summary["run_dir"], name)), name
 
 
+@pytest.mark.parametrize("extra", [
+    ["--edge_weight_type=4"], ["--precision=bfloat16"], ["--fusion_features=16"],
+    ["--preload=False", "--buckets_growth=1.5", "--prefetch_depth=2"]],
+    ids=["dynamic", "bf16", "fusion", "streamed-buckets"])
+def test_train_takes_every_single_device_mode(tmp_path, monkeypatch, extra):
+    """`train` with each mode of this slice: the run directory's params.json
+    holds it, training ran, and inference is chained but for dynamic
+    pooling, which the predictor does not serve (as the JAX one)."""
+    root = _make_corpus(str(tmp_path / "dataset"))
+    monkeypatch.chdir(tmp_path)
+    args = [a for a in SMALL if not a.startswith("--max_epoch")] + ["--max_epoch=1"]
+    cli.main(["train", "--data_type=Synthetic", "--flag=m", f"--dataset_dir={root}",
+              *args, *extra])
+    run_dir = _run_dir(tmp_path, "m")
+    cfg = json.load(open(os.path.join(run_dir, "params.json")))
+    for arg in extra:
+        k, v = arg[2:].split("=")
+        assert str(cfg[k]).lower() == v.lower(), (k, cfg[k])
+    assert os.path.exists(os.path.join(run_dir, "ckpt_last.pkl"))
+    results = os.path.join(root, "Synthetic", "test", "result_m")
+    assert os.path.isdir(results) == ("--edge_weight_type=4" not in extra)
+
+
 def test_config_file_and_extras(tmp_path, monkeypatch):
     """--config gives the base, --key=value pairs override it, typed by JSON."""
     monkeypatch.chdir(tmp_path)

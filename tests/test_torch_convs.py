@@ -170,8 +170,14 @@ SHAPES = pytest.mark.parametrize("c_in,c_out", [(6, 8), (16, 5)], ids=["widen", 
 
 @SHAPES
 @pytest.mark.parametrize("with_deg", [True, False], ids=["deg", "counted"])
-def test_feast_conv_coo_matches_jax(c_in, c_out, with_deg):
+@pytest.mark.parametrize("shuffled", [False, True], ids=["rows-sorted", "shuffled"])
+def test_feast_conv_coo_matches_jax(c_in, c_out, with_deg, shuffled):
+    """Host order (rows sorted), and the edges in a random order, as a
+    reordered level's lists come (the port sorts them; JAX's default
+    `rows_sorted=False` takes any order)."""
     ei, n, n_pad = _graph()
+    if shuffled:
+        ei = ei[:, np.random.default_rng(7).permutation(ei.shape[1])]
     prm = _feast_params(c_in, c_out, seed=1)
     x = np.zeros((n_pad, c_in), np.float32)
     x[:n] = np.random.default_rng(3).normal(size=(n, c_in))

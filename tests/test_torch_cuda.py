@@ -494,3 +494,107 @@ def test_graphed_forward_matches_eager_and_counts_its_launches(cuda_device):
     for (vg, ng), (ve, ne) in zip(counts["graphed"][0], counts["eager"][0]):
         np.testing.assert_array_equal(vg, ve)
         np.testing.assert_array_equal(ng, ne)
+
+
+# --------------------------------------------------------------------------
+# bf16 activations, dynamic pooling, streaming
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocksparse_", [False, True], ids=["band", "blocksparse"])
+def test_bf16_aggregates_on_card_match_cpu(blocksparse_, cuda_device):
+    """bf16 primals through the aggregate Functions, on the card (the
+    kernels) and on CPU tensors (the plain versions): outputs and bf16
+    cotangents within 2e-2 of their max (bf16 compute)."""
+    case = edge_case_inputs(16, 32, tile=64, n_blk=4, blocksparse=blocksparse_, seed=4)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        prim = [torch.from_numpy(case[k]).to(dev, torch.bfloat16).requires_grad_()
+                for k in ("r", "p", "x", "w")]
+        m = torch.from_numpy(case["m"]).to(dev)
+        if blocksparse_:
+            out = blocksparse.bs_aggregate(*prim, m, torch.from_numpy(case["blk_idx"]).to(dev))
+        else:
+            out = banded_cuda.banded_aggregate(*prim, m)
+        out.backward(torch.from_numpy(case["gout"]).to(dev))
+        assert all(p.grad.dtype == torch.bfloat16 for p in prim)
+        outs[str(dev)] = [out.detach().float().cpu()] + [p.grad.float().cpu() for p in prim]
+    rows = torch.ones(case["x"].shape[0], dtype=torch.bool)
+    rows[torch.from_numpy(np.asarray(case["clamped"], np.int64))] = False
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs[str(cuda_device)])):
+        if i == 1:  # r̄ of the clamped rows is of the order of 1e12: compared apart
+            a, b = a[rows], b[rows]
+        scale = float(a.abs().max())
+        assert float((a - b).abs().max()) <= 2e-2 * scale, i
+
+
+@pytest.mark.cuda
+def test_matching_and_coalesce_on_card_match_cpu(cuda_device):
+    """parallel_matching and coalesce_edges on identical inputs: rep and
+    edge lists bit-equal, the coalesced weights too (sorted sums, no
+    atomics)."""
+    from geobignn_tpu_torch.ops import coalesce, matching
+
+    mesh = synth.add_noise(synth.icosphere(4), 0.2, seed=0)
+    ei = graphs.build_vertex_graph_1ring(mesh.ev_indices, mesh.n_vertices).astype(np.int64)
+    n_pad = mesh.n_vertices + 7
+    ei_p = np.full((2, ei.shape[1] + 11), n_pad - 1, np.int64)
+    ei_p[:, : ei.shape[1]] = ei
+    rng = np.random.default_rng(0)
+    w = rng.uniform(0.1, 1.0, ei_p.shape[1]).astype(np.float32)
+    w[: ei.shape[1] // 4] = 0.5  # ties
+    got = {}
+    for dev in ("cpu", cuda_device):
+        e, ww = torch.from_numpy(ei_p).to(dev), torch.from_numpy(w).to(dev)
+        rep = matching.parallel_matching(e, ww, n_pad)
+        e2, w2 = matching.pool_edges_with_rep(e, ww, rep, n_pad)
+        rep2 = matching.parallel_matching(e2, w2, n_pad)
+        oracle = matching._parallel_matching_scatter(e, ww, n_pad)
+        got[str(dev)] = [t.cpu() for t in (rep, e2, w2, rep2, oracle)]
+    for a, b in zip(got["cpu"], got[str(cuda_device)]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graphed_dynamic_training_matches_eager(cuda_device):
+    """Trainer(Config(edge_weight_type=4)).fit on the card replays one CUDA
+    graph of the dynamic step (matchings, coalesces and COO convs inside):
+    2 epochs leave the parameters and Adam moments bit-equal to the eager
+    steps', and the learned pooling parameters' Adam moments stay zero
+    (their gradient is zero)."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    ds = _small_train_set()
+    cfg = Config(seed=0, max_epoch=2, edge_weight_type=4)
+    graphed = Trainer(cfg, ds, None, device=cuda_device)
+    graphed.fit()
+    with eager_steps():
+        eager = Trainer(cfg, ds, None, device=cuda_device)
+        eager.fit()
+    assert len(graphed._graphs) == 1 and not eager._graphs
+    for (name, a), b in zip(graphed.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(a, b), name
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(graphed.optimizer.state[a][k], eager.optimizer.state[b][k]), name
+        if ".pooling" in name:
+            assert not graphed.optimizer.state[a]["exp_avg"].any(), name
+
+
+@pytest.mark.cuda
+def test_pinned_prefetch_gives_the_synchronous_samples(cuda_device):
+    """device_iter (pinned host buffers, a copy stream, events and
+    record_stream) yields, in order, samples equal to synchronous copies,
+    also when the consumer's stream is busy while the next copies run."""
+    from geobignn_tpu_torch.capture import tensors
+    from geobignn_tpu_torch.data.prefetch import device_iter
+
+    ds = _small_train_set()
+    ds.bucketize(1.5)
+    order = [3, 0, 2, 1, 3]
+    for i, s in zip(order, device_iter(order, ds.get, cuda_device, depth=2)):
+        torch.cuda._sleep(2_000_000)  # keep the consumer's stream busy
+        want = ds.get(i).to(cuda_device)
+        for a, b in zip(tensors(s), tensors(want)):
+            assert a.is_cuda and torch.equal(a, b)

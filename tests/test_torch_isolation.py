@@ -21,7 +21,8 @@ need = {pkg.__name__ + "." + m for m in (
     "models.losses", "data.augment", "train.optim", "train.logging",
     "train.tb_writer", "train.trainer", "ops.banded_cuda", "ops.blocksparse",
     "ops.segment", "ops.feastconv", "train.checkpoint", "ops.nn_cuda",
-    "infer.evaluate", "infer.predict", "data.dataset", "cli", "__main__")}
+    "infer.evaluate", "infer.predict", "data.dataset", "cli", "__main__",
+    "ops.coalesce", "ops.matching", "pool.dynamic", "models.fusion", "data.prefetch")}
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -82,13 +83,26 @@ def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
 
 
 def test_no_level_structure_raises_not_ported():
-    """FeaStConv dispatches every level structure the host builders make;
-    what is still missing (the fusion layer) names its ROADMAP item."""
+    """FeaStConv dispatches every level structure the host builders make,
+    and the fusion layer constructs; what is still missing (multi-device
+    training, halo training) names its ROADMAP item, 7."""
     import inspect
 
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.data.builder import BuildConfig
+    from geobignn_tpu_torch.data.dataset import InMemoryDataset
     from geobignn_tpu_torch.models import dual_gnn
+    from geobignn_tpu_torch.train.trainer import Trainer, train
 
-    assert "not_ported" not in inspect.getsource(dual_gnn.FeaStConv)
-    assert "not_ported" not in inspect.getsource(dual_gnn.pool_features)
-    with pytest.raises(NotImplementedError, match="fusion"):
-        dual_gnn.DualGNN(fusion=8, device="cpu")
+    assert "not_ported" not in inspect.getsource(dual_gnn)
+    model = dual_gnn.DualGNN(fusion=8, device="cpu")
+    assert model.fusion.lin_v1.kernel.shape == (12, 8)
+    assert model.gnn_v.l_conv1.u.shape[0] == 6 + 8
+
+    ds = InMemoryDataset([(synth.icosphere(1), synth.icosphere(1))],
+                         BuildConfig(granularity=32, reorder=True))
+    with pytest.raises(NotImplementedError, match=r"multi-device.*ROADMAP.*item 7"):
+        Trainer(Config(granularity=32, dp=2), ds, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"halo.*ROADMAP.*item 7"):
+        train(Config(halo_parts=2), device="cpu")

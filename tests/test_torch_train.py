@@ -244,12 +244,33 @@ def test_trainer_matches_jax(batch_size):
 
 
 def test_trainer_refuses_unported_modes():
+    """Multi-device training is still refused, naming its ROADMAP item; the
+    single-device modes of the JAX trainer are routed as there (bf16
+    activations, fusion, dynamic pooling, streaming, bucketing;
+    tests/test_torch_precision.py, test_torch_fusion.py,
+    test_torch_dynamic.py and test_torch_prefetch.py hold them against
+    JAX)."""
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic
+
     ds = dataset.InMemoryDataset([_pair(synth, 1, 1)],
                                  builder.BuildConfig(granularity=32, reorder=True))
-    for kw in (dict(edge_weight_type=3),
-               dict(dynamic_pool=True), dict(dp=2), dict(precision="bfloat16"),
-               dict(preload=False), dict(preload=False, buckets_growth=1.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(dp=2), dict(gp=2), dict(dcn=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP: modules to port, item 7"):
+            Trainer(Config(granularity=32, **kw), ds, device="cpu")
+    routes = [(dict(edge_weight_type=3), DualGNNDynamic), (dict(dynamic_pool=True), DualGNNDynamic),
+              (dict(precision="bfloat16"), DualGNN), (dict(fusion_features=4), DualGNN),
+              (dict(preload=False), DualGNN), (dict(preload=False, buckets_growth=1.5), DualGNN)]
+    for kw, cls in routes:
+        tr = Trainer(Config(granularity=32, **kw), ds, device="cpu")
+        assert type(tr.model) is cls, kw
+        assert tr.bucketed == ("buckets_growth" in kw)
+    assert Trainer(Config(granularity=32, precision="bfloat16"), ds,
+                   device="cpu").model.gnn_f.compute_dtype == torch.bfloat16
+    # the JAX Config's own refusals stand: bf16 with dynamic pooling, buckets
+    # with preload
+    for kw in (dict(precision="bfloat16", edge_weight_type=4), dict(buckets_growth=1.5)):
+        with pytest.raises(ValueError):
             Trainer(Config(granularity=32, **kw), ds, device="cpu")
     # checkpoints are ported: a run directory, and the restore / auto_resume
     # flags that train() acts on, no longer raise (tests/test_torch_rundir.py)
