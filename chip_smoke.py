@@ -140,8 +140,8 @@ non-zero without the final result line:
      backward captured as a CUDA graph bit-equal to the eager one, that
      against the CPU's in float32 compute (F32_GRAD_TOL, the CPU held to the
      card's branches); the graphed training step's time;
- 13. [bucket]: a corpus written here (icosphere 3, 4 and 5, noise seeds 1
-     and 2, 20,000-face patches) trained with preload=False,
+ 13. [bucket]: a corpus written here (icosphere 3, 4 and 5, noise seed 1
+     (BUCKET_SEEDS), 20,000-face patches) trained with preload=False,
      buckets_growth=1.5, prefetch_depth=2, augment off, for 2 epochs
      (counted): the buckets and their padded slots against one merged plan,
      one CUDA graph per bucket plan with its bytes (static inputs, private
@@ -160,12 +160,46 @@ non-zero without the final result line:
      pair of candidate edges the two rank apart a near-tie within it),
      then the bf16-compute
      tolerances of phase 7; the learned pooling parameters' gradients zero;
+ 15. [halo], after phase 7: the halo-sharded serving path at the default
+     model's full width — Predictor(Config()) with phase 3's weights runs
+     predict_mesh_halo on add_noise(icosphere(5), 0.2, seed=0) over
+     HALO_PARTS (4) parts, devices=[cuda:0] * 4, in table mode and with
+     banded=True: each level's mode per branch; the launches of #1/#2 by
+     kernel name (profiled), parts x banded level-1 convs, beside the
+     expected count (each shows, at most as often as its wrapper
+     launched it); host build, the 4 parts' forward (CUDA events) and the
+     60 updates timed apart; each mode against the same call with
+     device="cpu" (POS_TOL_MEL / NORMAL_TOL); table mode against the
+     single-device DualGNN on the same owner-constrained hierarchies
+     (F32_TOL of max); banded with float32 aggregates against table mode
+     (POS_TOL_MEL / NORMAL_TOL; the default's bf16 distance printed); every
+     recorded banded call against its plain version (`[kernel]` lines);
+ 16. [halo-train]: HaloTrainer(Config(halo_parts=4, halo_banded=True,
+     max_epoch=2)) on two icosphere(5) pairs (noise seeds 0 and 6) over
+     [cuda:0] * 4: one step's gradients on the card against the CPU's,
+     bf16 (phase 7's bounds) and float32 (F32_GRAD_TOL; the CPU's step held
+     to the card's LeakyReLU branches, as phase 7); the float64 halo step on
+     the CPU against the single-device full-batch float64 step on the same
+     hierarchies (F32_GRAD_TOL); Trainer.fit, #1-#4 counted by the
+     wrappers (4 steps x 24 each way) and on one more step by kernel name
+     (profiled: each shows, at most as often as launched), loss per epoch,
+     s/step, edges/s; the comm report's
+     bytes per conv against the single-device step's time; each recorded
+     backward call against its plain backward (`[kernel-bwd]` lines);
+ 17. [dp] / [gp]: Trainer(Config(dp=2)) and Config(gp=2) on [cuda:0] * 2
+     over phase 7's seeds-(0, 6) patches, float32 heads: one sharded step's
+     gradient against the single-device step of the same model
+     (F32_GRAD_TOL), then Trainer.fit (1 epoch); no aggregate wrapper launches
+     (the sharded model's convs are the COO conv, as the JAX model's with
+     gp_axis).  Several parts or grid entries on one card run one after
+     another on one stream: no time of phases 15-17 is a multi-card time;
  10. one JSON line of the nine kernels, then the result line.  An
      aggregate's `launches` is what the device ran in the main path's runs
      (a profile, by kernel name: each launch runs one row_walk_kernel,
      whose template arguments name the aggregate): the forward ones from the
-     two served meshes, the backward ones from Trainer.fit, and both from
-     the counted runs of phases 11-14; nearest's is its wrapper's count in
+     two served meshes and the halo mesh, the backward ones from
+     Trainer.fit, and both from the counted runs of phases 11-14 and 16;
+     nearest's is its wrapper's count in
      the evaluation, which no graph holds.
 
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
@@ -221,6 +255,7 @@ closest pairs, so the error of the distances is printed beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -234,10 +269,15 @@ H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, SXM at 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3
 NEAREST_TOL = 1e-5  # of max(|a|^2 + |b|^2), on squared distances
 BF16_TOL, F32_TOL = 2e-2, 1e-4
+HALO_PARTS = 4  # parts of the halo phases, all on cuda:0
 POS_TOL_MEL, NORMAL_TOL = 2e-2, 5e-2
 FWD = ("aggregate_first", "transform_first")
 AGGREGATES = tuple(pre + k + suf for suf in ("", "_bwd") for pre in ("", "bs_") for k in FWD)
 KERNELS = AGGREGATES + ("nearest",)
+
+
+def _lap(t_start, what):
+    print(f"[time] {what} done {time.perf_counter() - t_start:.1f} s after the card was found")
 
 
 def _counts(**launched):
@@ -279,6 +319,9 @@ MAX_HELD = 16  # values a step may hold to the card's branch (testing.same_branc
 # epoch losses, streamed over size buckets against one merged plan preloaded,
 # on the card and on the CPU, relative (see the docstring)
 BUCKET_TOL = 1e-3
+# noise seeds of [bucket]'s corpus (icosphere 3, 4 and 5 each): one seed
+# keeps the whole run near 600 s (its CPU epoch is the phase's cost)
+BUCKET_SEEDS = (1,)
 # dynamic pooling, GPU vs CPU (testing.same_matchings; see the docstring):
 # the edge weights' distance and each pair of candidate edges ranked apart,
 # over the weights' scale: one bf16 ulp; and the representatives a step
@@ -1711,8 +1754,8 @@ def _graph_bytes(torch, graph):
 
 
 def bucket_phase(torch, np, kind):
-    """Phase 13: a corpus written here (icosphere 3, 4 and 5, noise seeds 1
-    and 2), trained streamed (preload=False, prefetch_depth=2) over size
+    """Phase 13: a corpus written here (icosphere 3, 4 and 5, noise seeds
+    BUCKET_SEEDS), trained streamed (preload=False, prefetch_depth=2) over size
     buckets (buckets_growth=1.5) for 2 epochs, augment off: buckets and
     their padded slots against one merged plan; one graph per bucket and
     its bytes; s/step and edges/s; the busy share of an epoch streamed
@@ -1737,7 +1780,7 @@ def bucket_phase(torch, np, kind):
             clean = synth.icosphere(k)
             meshio.write_obj(os.path.join(split, "original", f"{name}.obj"),
                              clean.points, clean.fv_indices)
-            for sd in (1, 2):
+            for sd in BUCKET_SEEDS:
                 noisy = synth.add_noise(clean, 0.2, seed=sd)
                 meshio.write_obj(os.path.join(split, "noisy", f"{name}_n{sd}.obj"),
                                  noisy.points, noisy.fv_indices)
@@ -1758,7 +1801,8 @@ def bucket_phase(torch, np, kind):
             p = ds._bucket_plans[b]
             slots.setdefault(b, [0, p.v.n1 + p.f.n1])[0] += 1
         merged = ds.plan.v.n1 + ds.plan.f.n1
-        print(f"[{tag}] {len(ds)} samples from {len(names) * 2} meshes in {n_b} buckets "
+        print(f"[{tag}] {len(ds)} samples from {len(names) * len(BUCKET_SEEDS)} meshes in "
+              f"{n_b} buckets "
               f"(growth 1.5): per bucket (samples, padded vertex + facet slots) "
               f"{[tuple(slots[b]) for b in sorted(slots)]} against {merged} slots of one "
               f"merged plan; padded slots per epoch {sum(n * s for n, s in slots.values())} "
@@ -1918,6 +1962,354 @@ def dynamic_phase(torch, np, train_ds, static_ms, kind):
     return cnt["device"]
 
 
+# --------------------------------------------------------------------------
+# phases 15-17: the multi-device paths — halo-sharded serving and training,
+# dp and gp — as one process over a grid of devices, here all cuda:0
+# --------------------------------------------------------------------------
+
+def _halo_expected(sample, n_parts):
+    """Launches of #1/#2 in one halo forward: each part runs every level-0
+    conv of each branch whose level 0 bands (l_conv1, r_conv3, r_conv4)."""
+    from geobignn_tpu_torch.models.dual_gnn import CONV_SCHEDULE
+    from geobignn_tpu_torch.ops import banded_cuda
+
+    want = _counts()
+    for hb, c0 in ((sample.structure.v, 6), (sample.structure.f, 12)):
+        if hb.band0 is None:
+            continue
+        for _, lvl, c_in, c_out in CONV_SCHEDULE:
+            if lvl == 0:
+                want[FWD[banded_cuda.use_transform_first(c_in or c0, c_out)]] += n_parts
+    return want
+
+
+def _halo_modes(sample):
+    """Each level's conv mode per branch, as printed."""
+    out = []
+    for tag, hb in (("v", sample.structure.v), ("f", sample.structure.f)):
+        modes = [f"banded tile {hb.band0['m'].shape[2]}" if i == 0 and hb.band0 is not None
+                 else "table" for i in range(3)]
+        out.append(f"{tag}: " + ", ".join(f"L{i + 1} {m}" for i, m in enumerate(modes)))
+    return "; ".join(out)
+
+
+def _single_device_sample(np, mesh_n, mesh_o, bc, n_parts, seed):
+    """The single-device sample over the owner-constrained hierarchies a halo
+    sample of (mesh_n, mesh_o) builds (no tables, no band: COO convs)."""
+    from geobignn_tpu_torch import structs
+    from geobignn_tpu_torch.data import builder
+    from geobignn_tpu_torch.parallel import partition as hp
+    from geobignn_tpu_torch.pool.hierarchy import build_hierarchy
+
+    bv, bf, meta = builder.build_raw(mesh_n, mesh_o, bc)
+    owner_v = hp.partition_nodes(bv.edge_index, bv.n_nodes, n_parts, seed=seed)
+    owner_f = owner_v[meta["fv_indices"][:, 0]].astype(np.int32)
+    bv.specs = build_hierarchy(bv.edge_index, bv.edge_weight, bv.x, bv.n_nodes,
+                               owner=owner_v, weight_type=bc.weight_type)
+    bf.specs = build_hierarchy(bf.edge_index, bf.edge_weight, bf.x, bf.n_nodes,
+                               owner=owner_f, weight_type=bc.weight_type)
+    plan = builder.plan_for(bv, bf, bc.granularity)
+    fv = np.full((plan.f.n1, 3), plan.v.n1 - 1, np.int32)
+    fv[: bf.n_nodes] = meta["fv_indices"]
+    return structs.DualSample(
+        v=builder._pad_branch(bv, plan.v), f=builder._pad_branch(bf, plan.f), fv_indices=fv,
+        edge_dual_v=np.zeros(1, np.int32), edge_dual_f=np.zeros(1, np.int32),
+        centroid=meta["centroid"].astype(np.float32), scale=np.float32(meta["scale"]))
+
+
+def _rel(a, b):
+    """max|a - b| / max|b| of two arrays or tensors."""
+    import numpy as np
+
+    a, b = (np.asarray(t.detach().cpu() if hasattr(t, "detach") else t, np.float64)
+            for t in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def halo_serve_phase(torch, np, state, kind):
+    """Phase 15, [halo]: Predictor(Config()).predict_mesh_halo of
+    add_noise(icosphere(5), 0.2, seed=0) over HALO_PARTS parts on
+    [cuda:0] * HALO_PARTS, in table mode and banded; returns the recorded
+    banded forward calls and the counted launches."""
+    from geobignn_tpu_torch import geometry
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.infer import predict
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.parallel import halo_train as ht
+    from geobignn_tpu_torch.testing import aggregates_in
+
+    cfg = Config()
+    pred = predict.Predictor(cfg, state, device="cuda")
+    pred_cpu = predict.Predictor(cfg, state, device="cpu")
+    mesh = synth.add_noise(synth.icosphere(5), 0.2, seed=0)
+    devs = [torch.device("cuda", 0)] * HALO_PARTS
+    mel = geometry.mean_edge_length_np(mesh.points, mesh.ev_indices)
+    res, captured, launches = {}, {}, _counts()
+    print(f"[halo] {HALO_PARTS} parts, all on cuda:0 (one card: the parts' kernels "
+          f"run one after another on one stream; no time here is a multi-card time)")
+    for banded in (False, True):
+        mode = "banded" if banded else "table"
+        t0 = time.perf_counter()
+        sample = ht.build_halo_train_sample(mesh, None, cfg.build_config(), HALO_PARTS,
+                                            banded=banded, devices=devs)
+        host_s = time.perf_counter() - t0
+        fwd = ht.make_halo_forward(pred.model, sample.static)
+        fwd_ms = _cuda_ms(lambda: fwd(sample.arrays), reps=3)
+        with _recording(captured) if banded else contextlib.nullcontext():
+            pred.predict_mesh_halo(mesh, HALO_PARTS, banded, devs)  # warm-up (recorded)
+        with _counted() as cnt:
+            vp, nf = pred.predict_mesh_halo(mesh, HALO_PARTS, banded, devs)
+        want = _halo_expected(sample, HALO_PARTS)
+        print(f"[halo] {mode}: levels {_halo_modes(sample)}; launches of #1/#2 by "
+              f"kernel name {_nonzero(cnt['device'])}, expected {_nonzero(want)} "
+              f"(parts x banded level-1 convs); wrappers {_nonzero(cnt['wrappers'])}")
+        assert cnt["wrappers"] == want, cnt  # eager: every launch through a wrapper
+        # every expected kernel shows by name, at most as often as launched (see
+        # halo_train_phase on the profiles of this phase's eager runs)
+        assert all(0 < cnt["device"][k] <= want[k] if want[k] else cnt["device"][k] == 0
+                   for k in AGGREGATES), cnt
+        if banded:
+            launches = want
+        upd = [torch.from_numpy(a).to("cuda") for a in (
+            vp, mesh.fv_indices.astype(np.int64), mesh.vf_indices.astype(np.int64), nf)]
+        upd_ms = _cuda_ms(lambda: predict.update_positions(*upd, n_iter=60), reps=3)
+        print(f"[halo] {mode}: host build {host_s:.3f} s; forward of the {HALO_PARTS} "
+              f"parts {fwd_ms:.3f} ms (CUDA events, eager); 60 update iterations "
+              f"{upd_ms:.3f} ms; card {kind}")
+        t0 = time.perf_counter()
+        vp_c, nf_c = pred_cpu.predict_mesh_halo(mesh, HALO_PARTS, banded)
+        cpu_s = time.perf_counter() - t0
+        e_pos, e_n = float(np.abs(vp - vp_c).max()) / mel, float(np.abs(nf - nf_c).max())
+        print(f"[halo] {mode}: GPU vs device=\"cpu\" ({cpu_s:.2f} s): positions "
+              f"{e_pos:.3e} mean edge lengths (tol {POS_TOL_MEL}), normals {e_n:.3e} "
+              f"(tol {NORMAL_TOL})")
+        assert np.isfinite(vp).all() and np.isfinite(nf).all()
+        assert e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
+        res[mode] = (vp, nf)
+        if not banded:  # the single-device model on the same hierarchies
+            single = _single_device_sample(np, mesh, None, cfg.build_config(),
+                                           HALO_PARTS, 0).to("cuda")
+            model = DualGNN(device="cuda")  # float32 heads, as the halo model's
+            model.load_state_dict(state)
+            with torch.no_grad():
+                v_s, n_s = model(single)
+            v_h, n_h = ht.unshard_predictions(sample, *fwd(sample.arrays))
+            e_v, e_nn = _rel(v_h, v_s[: sample.n_v]), _rel(n_h, n_s[: sample.n_f])
+            print(f"[halo] table mode vs the single-device DualGNN on the same "
+                  f"hierarchies (float32, COO convs): positions {e_v:.3e}, normals "
+                  f"{e_nn:.3e} of max (tol {F32_TOL})")
+            assert e_v <= F32_TOL and e_nn <= F32_TOL
+            del single, model
+        del sample
+        torch.cuda.empty_cache()
+    # banded against table: held to the model tolerances with the aggregates
+    # in float32 compute (as phase 4 holds the banded patch against the
+    # table convs); the default's bf16 operands' distance is printed
+    with aggregates_in(torch.float32):
+        res["banded32"] = pred.predict_mesh_halo(mesh, HALO_PARTS, True, devs)
+    for mode in ("banded32", "banded"):
+        e_pos = float(np.abs(res[mode][0] - res["table"][0]).max()) / mel
+        e_n = float(np.abs(res[mode][1] - res["table"][1]).max())
+        print(f"[halo] banded ({'float32' if mode == 'banded32' else 'bf16'} aggregate "
+              f"operands) vs table: positions {e_pos:.3e} mean edge lengths, normals "
+              f"{e_n:.3e}" + (f" (tol {POS_TOL_MEL}, {NORMAL_TOL})" if mode == "banded32"
+                               else " (printed: bf16 rounding, not bounded)"))
+        if mode == "banded32":
+            assert e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
+    assert sum(e["calls"] for e in captured.values()) == sum(launches.values())
+    return captured, launches
+
+
+def _float64(torch, sample):
+    """A halo sample with every floating-point array in float64."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.double() if t.is_floating_point() else t
+
+    return dataclasses.replace(sample, arrays=[cast(a) for a in sample.arrays])
+
+
+def _halo_grads(torch, state, sample, cfg, f32, dtype=None):
+    """A DualGNN holding the gradient of the halo loss of `sample` (on its
+    parts' devices) at `state`, and the loss; f32: aggregates in float32
+    (in float64 with dtype float64: parameters and aggregates, the CPU's
+    plain versions)."""
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.params import tree_of
+    from geobignn_tpu_torch.parallel import halo_train as ht
+    from geobignn_tpu_torch.testing import aggregates_in
+
+    model = DualGNN(device=sample.devices[0])
+    model.load_state_dict(state)
+    model.to(dtype or torch.float32)
+    with aggregates_in(dtype or torch.float32) if f32 else contextlib.nullcontext():
+        loss, _ = ht._halo_loss(tree_of(model), sample.arrays, sample.static,
+                                cfg.pool_type, cfg.loss_cfg(), compute_dtype=dtype)
+        loss.backward()
+    return model, float(loss.detach())
+
+
+def halo_train_phase(torch, np, kind):
+    """Phase 16, [halo-train]: HaloTrainer(Config(halo_parts=HALO_PARTS,
+    halo_banded=True, max_epoch=2)) on two icosphere(5) pairs on
+    [cuda:0] * HALO_PARTS; returns the recorded backward calls and the
+    fit's launches."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.data.builder import attach_tables
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.ops import banded_cuda
+    from geobignn_tpu_torch.parallel import accounting
+    from geobignn_tpu_torch.testing import grad_agreement, same_branches
+    from geobignn_tpu_torch.train.halo_trainer import HaloTrainer
+    from geobignn_tpu_torch.train.trainer import _metrics_of
+
+    clean = synth.icosphere(5)
+    pairs = [(synth.add_noise(clean, 0.2, seed=s), clean) for s in (0, 6)]
+    cfg = Config(halo_parts=HALO_PARTS, halo_banded=True, max_epoch=2, seed=0, augment=False)
+    devs = [torch.device("cuda", 0)] * HALO_PARTS
+    t0 = time.perf_counter()
+    tr = HaloTrainer(cfg, pairs, devices=devs)
+    print(f"[halo-train] {len(pairs)} meshes of {clean.n_faces} faces over {HALO_PARTS} "
+          f"parts on cuda:0: host build {time.perf_counter() - t0:.3f} s; levels "
+          f"{_halo_modes(tr.samples[0])}")
+    state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    s0 = tr.samples[0]
+    s0_cpu = s0.to([torch.device("cpu")] * HALO_PARTS)
+
+    # one step's gradients: the card against the CPU, bf16 and float32
+    captured: dict = {}
+    with _recording(captured, backward=True):
+        g_bf, l_bf = _halo_grads(torch, state, s0, cfg, False)
+    c_bf, lc_bf = _halo_grads(torch, state, s0_cpu, cfg, False)
+    _gpu_vs_cpu("halo-train", g_bf, c_bf, l_bf, lc_bf, "bf16 aggregate operands")
+    # float32, the CPU's step held to the LeakyReLU branches the card's step
+    # took (testing.same_branches, as phase 7)
+    picks: list = []
+    with same_branches(picks, replay=False):
+        g32, l32 = _halo_grads(torch, state, s0, cfg, True)
+    with same_branches(picks, replay=True) as flips32:
+        c32, lc32 = _halo_grads(torch, state, s0_cpu, cfg, True)
+    agree = grad_agreement(g32, c32)
+    top = max(agree, key=lambda k: agree[k][0])
+    print(f"[halo-train] float32 gradients GPU vs CPU: loss {l32:.6f} vs {lc32:.6f}; "
+          f"worst tensor {top} {agree[top][0]:.3e} of its max|g| (tol {F32_GRAD_TOL}); "
+          f"LeakyReLU signs held to the card's {flips32[0]} (at most {MAX_HELD}), "
+          f"widest {flips32[1]:.3e} of its row's scale")
+    assert agree[top][0] <= F32_GRAD_TOL and flips32[0] <= MAX_HELD
+    assert abs(l32 - lc32) <= 1e-5 * abs(lc32)
+
+    # against the single-device full-batch step on the same hierarchies, both
+    # in float64 on the CPU (where the two models' summation orders cannot
+    # put a near-tie apart); the single-device step timed on the card
+    bc = dataclasses.replace(cfg.build_config(), reorder=False)
+    single = attach_tables(_single_device_sample(np, *pairs[0], bc, HALO_PARTS,
+                                                 cfg.preprocess_seed))
+    ref64, l_ref64, ref_s = _grad_step(state, single.to("cpu"), "float64", cfg)
+    h64, lc64 = _halo_grads(torch, state, _float64(torch, s0_cpu), cfg, True, torch.float64)
+    agree = grad_agreement(h64, ref64)  # neither held: both take float64's branches
+    top = max(agree, key=lambda k: agree[k][0])
+    print(f"[halo-train] float64 halo gradients vs the single-device full-batch step "
+          f"on the same hierarchies ({ref_s:.1f} s): loss {lc64:.9f} vs {l_ref64:.9f}; "
+          f"worst tensor {top} {agree[top][0]:.3e} of its max|g| (tol {F32_GRAD_TOL})")
+    assert agree[top][0] <= F32_GRAD_TOL and abs(lc64 - l_ref64) <= 1e-9 * abs(l_ref64)
+    single = single.to("cuda")
+    ref = DualGNN(device="cuda")
+    ref.load_state_dict(state)
+
+    def single_step():
+        ref.zero_grad(set_to_none=True)
+        _metrics_of(*ref(single), single, cfg)[0].backward()
+
+    single_ms = _cuda_ms(single_step, reps=3)
+    del g_bf, c_bf, g32, c32, h64, ref64, s0_cpu, single, ref
+    torch.cuda.empty_cache()
+
+    # the main path: fit, counted by the wrappers; the device's count by
+    # kernel name is read on one more step (a profile of this phase's eager
+    # steps, after the earlier phases' profiles, has lost a #1 record: each
+    # kernel must show, at most as often as its wrapper launched it)
+    hist = []
+    banded_cuda.reset_launches()
+    tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+    fit_launches = dict(banded_cuda.LAUNCHES)
+    steps = cfg.max_epoch * len(pairs)
+    per_step = _halo_expected(s0, HALO_PARTS)
+    per_step.update({k + "_bwd": v for k, v in per_step.items() if v})
+    want = {k: steps * v for k, v in per_step.items()}
+    with _counted() as cnt:
+        tr._step_for(s0)(s0.arrays, 0)
+    print(f"[halo-train] Trainer.fit {cfg.max_epoch} epochs x {len(pairs)} meshes: the "
+          f"wrappers counted {_nonzero(fit_launches)}, expected {_nonzero(want)}; one more "
+          f"step, profiled: by kernel name {_nonzero(cnt['device'])}, expected "
+          f"{_nonzero(per_step)}; "
+          + "; ".join(f"epoch {i} loss {m['loss']:.6f} {1.0 / m['samples_per_s']:.3f} "
+                      f"s/step {m['edges_per_s']:.4e} edges/s" for i, m in enumerate(hist))
+          + f" (eager, {HALO_PARTS} parts on one card; card {kind})")
+    assert fit_launches == want and cnt["wrappers"] == per_step, (fit_launches, cnt)
+    assert all(0 < cnt["device"][k] <= per_step[k] if per_step[k] else cnt["device"][k] == 0
+               for k in AGGREGATES), cnt
+    assert all(np.isfinite(m["loss"]) for m in hist) and hist[-1]["loss"] < hist[0]["loss"]
+
+    rep = accounting.halo_comm_report(s0.structure, step_ms_single_chip=single_ms)
+    print(f"[halo] comm report ({HALO_PARTS} parts, one mesh, the single-device step "
+          f"{single_ms:.3f} ms eager on {kind}): bytes per conv "
+          + ", ".join(f"{c['name']} {c['payload_mb'] * 1e6:.0f} ({c['real_mb'] * 1e6:.0f} real)"
+                      for c in rep["per_conv"])
+          + f"; per step {rep['step_payload_mb']:.3f} MB, {rep['n_rounds_step']} rounds")
+    return captured, want
+
+
+def sharded_phase(torch, np, train_ds, kind):
+    """Phase 17, [dp] / [gp]: Trainer(Config(dp=2)) and Config(gp=2) on
+    [cuda:0] * 2 over phase 7's patches: one step's gradient against the
+    single-device step of the same (COO) model, then Trainer.fit."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.ops import banded_cuda
+    from geobignn_tpu_torch.parallel import api
+    from geobignn_tpu_torch.testing import grad_agreement
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda", 0)
+    for grid in (dict(dp=2), dict(gp=2)):
+        tag = next(iter(grid))
+        cfg = Config(seed=0, max_epoch=1, augment=False, fc_precision="float32", **grid)
+        tr = Trainer(cfg, train_ds, devices=[dev] * 2)
+        state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+        idx = list(range(tr._global_batch))
+        batch = api.stack_samples([train_ds.get(i, tr.plan) for i in idx])
+        t0 = time.perf_counter()
+        tr._sharded_step(batch, 0)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        ref = DualGNN(device="cuda")
+        ref.load_state_dict(state)
+        for i in idx:
+            loss, _ = api.dual_loss_and_metrics(ref, None, train_ds.get(i, tr.plan).to(dev),
+                                                cfg.loss_cfg(), [dev])
+            loss.backward()
+        for prm in ref.parameters():
+            prm.grad.div_(len(idx))
+        worst = max(v[0] for v in grad_agreement(tr.model, ref).values())
+        hist = []
+        banded_cuda.reset_launches()
+        tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+        print(f"[{tag}] {grid}: one step ({len(idx)} of phase 7's patches, {step_s:.3f} s "
+              f"wall, eager, 2 grid entries on cuda:0) against the single-device step of "
+              f"the same model: worst tensor {worst:.3e} of its max|g| (tol "
+              f"{F32_GRAD_TOL}); fit: loss {hist[0]['loss']:.6f}, "
+              f"{hist[0]['samples_per_s']:.3f} samples/s, {hist[0]['edges_per_s']:.4e} "
+              f"edges/s; aggregate kernels launched {_nonzero(banded_cuda.LAUNCHES)} (the "
+              f"sharded model's convs are COO, as the JAX model's with gp_axis); card {kind}")
+        assert worst <= F32_GRAD_TOL and np.isfinite(hist[0]["loss"])
+        assert sum(banded_cuda.LAUNCHES.values()) == 0
+        del tr, ref, batch
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2074,6 +2466,7 @@ def main() -> int:
     assert e_pos1 <= POS_TOL_MEL and e_n1 <= NORMAL_TOL
     del sample1, patch0, mem1
 
+    _lap(t_start, "phases 3-5")
     # 6. forward kernels against their plain versions --------------------------
     rows = [check_forward(key, captured[key]) for key in sorted(captured)]
     # 128 -> 128 at T=256 as well (the path runs that width only at T=128)
@@ -2094,11 +2487,14 @@ def main() -> int:
     check_edge_cases()
     torch.cuda.empty_cache()
 
+    _lap(t_start, "phase 6")
     # 7. training ---------------------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     bwd_rows, fit_launches, more = [], {}, []
     for seeds, prefix in (((0, 6), ""), ((1, 2), "bs_")):
         train = train_phase(torch, np, seeds, overfit=not prefix, kind=kind)
+        if not prefix:
+            patches = train["train_ds"]  # phase 17's
         # 11-12, 14: the modes of this training set's patches
         more.append(bf16_phase(torch, np, train["train_ds"], seeds, train["graph"], kind))
         if not prefix:
@@ -2122,6 +2518,7 @@ def main() -> int:
         del train
         torch.cuda.empty_cache()
 
+    _lap(t_start, "phases 7, 11, 12, 14")
     # the fc heads' memory: the bf16 facet head alone at N = 2^20 rows, forward
     # and backward, in row chunks and rematerialized against one piece
     model = DualGNN(fc_dtype=torch.bfloat16, device="cuda")
@@ -2134,17 +2531,34 @@ def main() -> int:
     del model, feat
     torch.cuda.empty_cache()
 
+    _lap(t_start, "the heads")
+    # 15-17. the multi-device paths, every part on cuda:0 ------------------------
+    halo_fwd, halo_launches = halo_serve_phase(torch, np, state, kind)
+    rows += [check_forward(key, halo_fwd[key], reps=10) for key in sorted(halo_fwd)]
+    halo_bwd, halo_fit = halo_train_phase(torch, np, kind)
+    bwd_rows += [check_backward(key, ent, gen) for key, ent in sorted(halo_bwd.items())]
+    more += [halo_launches, halo_fit]
+    del halo_fwd, halo_bwd
+    torch.cuda.empty_cache()
+    sharded_phase(torch, np, patches, kind)
+    del patches
+    torch.cuda.empty_cache()
+
+    _lap(t_start, "phases 15-17")
     # 13. streamed size buckets ---------------------------------------------------
     more.append(bucket_phase(torch, np, kind))
     torch.cuda.empty_cache()
 
+    _lap(t_start, "phase 13")
     # 7b. the bench's shape: one graphed step on a union batch of 8 meshes ---------
     union_phase(torch, np, kind)
 
+    _lap(t_start, "phase 7b")
     # 8. the run-directory path ---------------------------------------------------
     run = rundir_phase(torch, np)
     torch.cuda.empty_cache()
 
+    _lap(t_start, "phase 8")
     # 9. the nearest-distance kernel against its plain version -------------------
     gen = torch.Generator(device="cuda").manual_seed(7)
 

@@ -86,10 +86,10 @@ def main(argv=None):
     p_inf.add_argument("--dataset_root", default=None)
     p_inf.add_argument("--sub_size", type=int, default=None)
     p_inf.add_argument("--halo_parts", type=int, default=None,
-                       help="node-partition each mesh over this many devices "
-                       "(not ported yet: refused)")
+                       help="node-partition each mesh over this many parts (one "
+                       "card each; all on the CPU with --device=cpu)")
     p_inf.add_argument("--halo_banded", action="store_true",
-                       help="banded kernels in the halo convs (not ported yet: refused)")
+                       help="the banded aggregate in the halo parts' level-1 convs")
 
     p_ev.add_argument("--result_dir", required=True)
     p_ev.add_argument("--original_dir", required=True)

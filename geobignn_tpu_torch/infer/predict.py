@@ -20,8 +20,12 @@ directory written by the JAX package carries `code_bak/geobignn_tpu` only;
 that is never imported: its `params.json` and checkpoint are read and the
 live port serves the weights.
 
-Not ported yet (ROADMAP): the halo-sharded path (`halo_parts`,
-`halo_banded` are accepted and refused).
+`Predictor.predict_mesh_halo` (and `halo_parts > 1` in `denoise`,
+`predict_dir`, `infer --halo_parts`) denoises a whole mesh as one graph,
+node-partitioned over several parts with a boundary exchange per conv
+(parallel/halo_model.py): no patches, no overlap averaging.  The parts run
+on `devices` (one per part, a device may repeat), on the CPU when the
+predictor's device is the CPU, else on the first `n_parts` visible cards.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import builder, dataset as ds_mod
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.train import checkpoint as ckpt
-from geobignn_tpu_torch.utils import not_ported, resolve_device
+from geobignn_tpu_torch.utils import resolve_device
 
 _PKG = __name__.split(".")[0]
 
@@ -273,14 +277,53 @@ class Predictor:
         vp = vp / meta["scale"] + meta["centroid"]  # denormalize
         return vp.astype(np.float32), np_arr.astype(np.float32)
 
+    def predict_mesh_halo(self, mesh_n: meshio.TriMesh, n_parts: int | None = None,
+                          banded: bool = False, devices=None):
+        """Halo-sharded whole-mesh prediction: the mesh is node-partitioned
+        over n_parts parts and denoised as ONE graph.  `banded=True` runs the
+        level-1 convs of each part through the banded aggregate.  Returns
+        (denoised positions before integration, face normals), in the
+        mesh's own order and frame."""
+        from geobignn_tpu_torch.parallel import halo_train as ht
+        from geobignn_tpu_torch.train.halo_trainer import part_devices
+
+        # the parts' devices: `devices` as given, n_parts times the CPU for
+        # a CPU predictor, else the first n_parts visible cards (all of
+        # them by default, as the JAX predictor takes all its chips)
+        if devices is not None:
+            devs = part_devices(n_parts or len(devices), devices=devices)
+        elif self.device.type == "cpu":
+            if n_parts is None:
+                raise ValueError("halo inference on the CPU needs n_parts")
+            devs = part_devices(n_parts, "cpu")
+        else:
+            devs = part_devices(n_parts or torch.cuda.device_count(), self.device)
+        sample = ht.build_halo_train_sample(mesh_n, None, self.cfg.build_config(), len(devs),
+                                            banded=banded, devices=devs)
+        fwd = ht.make_halo_forward(self.model, sample.static, self.cfg.pool_type)
+        vp, np_arr = ht.unshard_predictions(sample, *fwd(sample.arrays))
+        meta = sample.meta
+        if "perm_v" in meta:  # back to the original vertex / face order
+            u = np.empty_like(vp)
+            u[meta["perm_v"]] = vp
+            vp = u
+            u = np.empty_like(np_arr)
+            u[meta["perm_f"]] = np_arr
+            np_arr = u
+        vp = vp / meta["scale"] + meta["centroid"]
+        np_arr = np_arr / np.maximum(np.linalg.norm(np_arr, axis=1, keepdims=True), 1e-12)
+        return vp.astype(np.float32), np_arr.astype(np.float32)
+
     def denoise(self, mesh_n: meshio.TriMesh, n_update_iters: int = 60,
                 halo_parts: int | None = None, halo_banded: bool = False,
                 ) -> tuple[np.ndarray, np.ndarray]:
-        """Full pipeline: predict + integrate normals; returns (V, Np)."""
-        if (halo_parts and halo_parts > 1) or halo_banded:
-            not_ported("halo-sharded inference (halo_parts, halo_banded)",
-                       "modules to port, item 7, multi-device and halo paths")
-        vp, np_arr = self.predict_mesh(mesh_n)
+        """Full pipeline: predict + integrate normals; returns (V, Np).
+        halo_parts > 1 takes the halo-sharded path, halo_banded its banded
+        level-1 convs."""
+        if halo_parts and halo_parts > 1:
+            vp, np_arr = self.predict_mesh_halo(mesh_n, halo_parts, banded=halo_banded)
+        else:
+            vp, np_arr = self.predict_mesh(mesh_n)
         dev = self.device
         depth = None
         use_depth = self.cfg.force_depth

@@ -14,7 +14,9 @@ so params.py moves weights across by renaming keys only.
 Every conv of the default configuration runs the banded aggregate
 (ops/banded_cuda.py) or, at a level that carries `blk_idx`, the block-sparse
 one (ops/blocksparse.py); levels without a band run the table or COO conv
-(ops/feastconv.py, plain torch).  With `fusion > 0` a DualFusionLayer
+(ops/feastconv.py, plain torch).  Called with `gp_devices` (the dp / gp
+step of parallel/api.py), every conv is the COO conv over its edge list cut
+across those devices, as the JAX model with `gp_axis` set.  With `fusion > 0` a DualFusionLayer
 (models/fusion.py) exchanges features over the vertex<->facet incidence and
 its outputs are concatenated onto both branch inputs; `compute_dtype`
 bfloat16 runs the U-Nets' activations in bf16 (Config(precision=
@@ -110,7 +112,16 @@ class FeaStConv(nn.Module):
             out = feastconv.feast_conv(params, x, level.edge_index, deg=level.deg.to(dt))
         return out * level.node_mask.to(dt)[:, None]
 
-    def forward(self, x: torch.Tensor, level: GraphLevel) -> torch.Tensor:
+    def _edge_sharded(self, x: torch.Tensor, level: GraphLevel, devices) -> torch.Tensor:
+        """The COO conv with the edge list cut over `devices` (graph parallel)."""
+        dt = x.dtype
+        out = feastconv.feast_conv(self._params(dt), x, level.edge_index,
+                                   shard_devices=devices)
+        return out * level.node_mask.to(dt)[:, None]
+
+    def forward(self, x: torch.Tensor, level: GraphLevel, gp_devices=None) -> torch.Tensor:
+        if gp_devices is not None:  # the sharded model: COO convs only, as JAX's
+            return _remat(self._edge_sharded, x, level, gp_devices)
         if level.band is None:
             return _remat(self._unbanded, x, level)
         dt = x.dtype
@@ -165,25 +176,26 @@ class GNNModule(nn.Module):
         for name, _, ci, co in CONV_SCHEDULE:
             setattr(self, name, FeaStConv(c_in if ci is None else ci, co, heads, device))
 
-    def forward(self, branch: BranchGraph, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, branch: BranchGraph, x: torch.Tensor, gp_devices=None) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         l1, l2, l3 = branch.levels
-        x1 = _act(self.l_conv1(x, l1))
+        g = gp_devices
+        x1 = _act(self.l_conv1(x, l1, g))
         x2 = pool_features(x1, branch.steps[0:2], self.pool_type)
-        x2 = _act(self.l_conv2(x2, l2))
+        x2 = _act(self.l_conv2(x2, l2, g))
         x3 = pool_features(x2, branch.steps[2:4], self.pool_type)
-        x3 = _act(self.l_conv3(x3, l3))
-        x3 = _act(self.l_conv4(x3, l3))
+        x3 = _act(self.l_conv3(x3, l3, g))
+        x3 = _act(self.l_conv4(x3, l3, g))
 
         u2 = tbl.gather_unpool(x3, branch.unpool2, branch.unpool2_rev)
-        u2 = self.r_conv1(u2, l2)
+        u2 = self.r_conv1(u2, l2, g)
         x2 = torch.cat([x2, u2], dim=1)
-        x2 = _act(self.r_conv2(x2, l2))
+        x2 = _act(self.r_conv2(x2, l2, g))
 
         u1 = tbl.gather_unpool(x2, branch.unpool1, branch.unpool1_rev)
-        u1 = self.r_conv3(u1, l1)
+        u1 = self.r_conv3(u1, l1, g)
         x1 = torch.cat([x1, u1], dim=1)
-        return _act(self.r_conv4(x1, l1))
+        return _act(self.r_conv4(x1, l1, g))
 
 
 class Dense(nn.Module):
@@ -242,13 +254,15 @@ class DualGNN(nn.Module):
         out = torch.cat([_remat(head, f) for f in feat.chunk(n_chunks)])
         return out.to(torch.promote_types(out.dtype, torch.float32))
 
-    def forward(self, sample: DualSample):
+    def forward(self, sample: DualSample, gp_devices=None):
+        """`gp_devices`: the sharded model (parallel/api.py), every conv the
+        COO conv over its edge list cut across these devices."""
         xyz = sample.v.x[:, :3]
         x_v, h_f = sample.v.x, None
         if hasattr(self, "fusion"):
             h_v, h_f = self.fusion(sample.v.x, sample.f.x, sample)
             x_v = torch.cat([x_v, h_v], dim=1)
-        feat_v = self.gnn_v(sample.v, x_v)
+        feat_v = self.gnn_v(sample.v, x_v, gp_devices)
         d = self._run_head(self.fc_v1, self.fc_v2, feat_v)
         if self.force_depth:
             d = d * sample.v.depth_direction
@@ -263,6 +277,6 @@ class DualGNN(nn.Module):
         parts_f = [sample.f.x, face_cent, face_norm] + ([h_f] if h_f is not None else [])
         x_f = torch.cat(parts_f, dim=1)
 
-        feat_f = self.gnn_f(sample.f, x_f)
+        feat_f = self.gnn_f(sample.f, x_f, gp_devices)
         n = self._run_head(self.fc_f1, self.fc_f2, feat_f)
         return vert_p, geometry.safe_normalize(n)

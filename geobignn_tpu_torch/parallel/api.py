@@ -1,0 +1,155 @@
+"""Multi-device training: data parallel (dp) x graph parallel (gp).
+
+Counterpart of geobignn_tpu/parallel/api.py.  The JAX step is one
+`shard_map` program over a (dp, gp) device mesh; here one process holds a
+(dp, gp) grid of torch devices (`make_mesh`) and drives it:
+
+  * dp: replica r takes its slice of the stacked batch and runs the model
+    on mesh[r] with a copy of the parameters there; autograd sums every
+    replica's gradient into the one parameter set, which is divided by the
+    global batch, as the JAX step's psum and division;
+  * gp: each conv's edge list is cut into one contiguous slice per device of
+    the replica's row, each device aggregates its slice and the partial
+    aggregates and degrees are summed (ops/feastconv.feast_conv's
+    `shard_devices`, the JAX psum); the node features and everything
+    between the convs, replicated on every gp device in JAX, are computed
+    once on the row's first device.  Under dp or gp every conv is the COO
+    conv (the sharded model drops bands and tables, as JAX's
+    `DualGNN(gp_axis=...)` does).
+
+Several grid entries may name one device: the CPU tests run every replica
+on the CPU, one card runs them all on cuda:0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from geobignn_tpu_torch.data import augment as aug
+from geobignn_tpu_torch.models import losses
+from geobignn_tpu_torch.structs import DualSample, _Struct
+from geobignn_tpu_torch.utils import not_ported
+
+MULTI_HOST = "modules to port, item 10, multi-host dcn through torch.distributed"
+
+
+def make_mesh(dp: int, gp: int, devices=None, dcn: int = 1) -> list[list[torch.device]]:
+    """The (dp, gp) grid of devices, row-major over `devices`.  devices=None
+    takes the first dp*gp visible cards and raises with fewer; an explicit
+    list may name one device several times.  dcn > 1 (several hosts) is not
+    ported."""
+    if dcn > 1:
+        not_ported("multi-host training (dcn > 1)", MULTI_HOST)
+    need = dp * gp
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < need:
+        raise ValueError(f"need {need} devices, have {len(devices)}")
+    return [devices[r * gp : (r + 1) * gp] for r in range(dp)]
+
+
+def _map_leaves(fn, values: list):
+    """fn over the corresponding arrays of several structs of one shape."""
+    first = values[0]
+    if isinstance(first, _Struct):
+        return dataclasses.replace(first, **{
+            f.name: _map_leaves(fn, [getattr(v, f.name) for v in values])
+            for f in dataclasses.fields(first)})
+    if isinstance(first, tuple):
+        return tuple(_map_leaves(fn, list(vs)) for vs in zip(*values))
+    if isinstance(first, (np.ndarray, np.generic)):
+        return fn(values)
+    return first  # static ints and None
+
+
+def stack_samples(samples: list[DualSample]) -> DualSample:
+    """Same-SizePlan samples stacked into one batched sample (leading axis B)."""
+    return _map_leaves(lambda xs: np.stack([np.asarray(x) for x in xs]), samples)
+
+
+def sample_at(batched: DualSample, i: int) -> DualSample:
+    """Sample i of a stacked batch."""
+    return _map_leaves(lambda xs: np.asarray(xs[0])[i], [batched])
+
+
+def batch_size_of(batched: DualSample) -> int:
+    return int(np.asarray(batched.v.x).shape[0])
+
+
+def dual_loss_and_metrics(model, params, sample: DualSample, cfg: dict,
+                          gp_devices: list | None = None) -> tuple:
+    """(loss, metrics dict) of one sample.  `params`: name -> tensor to run
+    the model with (torch.func.functional_call; None for its own);
+    `gp_devices`, the edge-sharded convs' devices (graph parallel)."""
+    kwargs = {} if gp_devices is None else {"gp_devices": gp_devices}
+    if params is None:
+        vert_p, norm_p = model(sample, **kwargs)
+    else:
+        vert_p, norm_p = functional_call(model, params, (sample,), kwargs)
+    mask_v = sample.v.levels[0].node_mask
+    mask_f = sample.f.levels[0].node_mask
+    lv = losses.loss_v(vert_p, sample.v.y, mask_v, cfg.get("loss_v", "L1"))
+    ln = losses.loss_n(norm_p, sample.f.y, mask_f, cfg.get("loss_n", "L1"))
+    loss = losses.dual_loss(lv, ln, cfg.get("loss_v_scale", 1.0), cfg.get("loss_n_scale", 1.0))
+    metrics = dict(loss=loss, loss_v=lv, loss_f=ln,
+                   error_v=losses.error_v(vert_p, sample.v.y, mask_v),
+                   error_f=losses.error_n(norm_p, sample.f.y, mask_f))
+    return loss, metrics
+
+
+def _rotation_seed(seed: int, rank: int, i: int) -> int:
+    """The seed of sample i of replica `rank` (the JAX fold_in chain)."""
+    return int(np.random.SeedSequence([seed, rank, i]).generate_state(1)[0])
+
+
+def make_sharded_train_step(model, optimizer, mesh: list, loss_cfg: dict | None = None,
+                            augment: bool = False, gp_shard: bool = True):
+    """The step over the (dp, gp) grid: step(batch, seed) -> metrics.
+
+    `batch` is a stacked batch (stack_samples) of B samples, B divisible by
+    dp; replica r runs samples [r*B/dp, (r+1)*B/dp) on mesh[r].  The
+    gradients of all B samples are summed into the model's parameters and
+    divided by B, then `optimizer` takes one step.  The metrics are the means
+    over the batch, as tensors on the parameters' device.  With `augment`
+    each sample gets its own rotation, drawn from a torch.Generator seeded
+    by (seed, replica, index).  gp_shard=False keeps each replica's edges
+    whole (dynamic pooling, which is dp-only)."""
+    from geobignn_tpu_torch.pool.dynamic import fill_missing_grads
+
+    cfg = loss_cfg or {}
+    dp = len(mesh)
+
+    def step(batch: DualSample, seed: int = 0) -> dict:
+        b = batch_size_of(batch)
+        if b % dp:
+            raise ValueError(f"batch {b} is not divisible by dp={dp}")
+        b_local = b // dp
+        named = dict(model.named_parameters())
+        home = next(iter(named.values())).device
+        optimizer.zero_grad(set_to_none=True)
+        sums: dict = {}
+        for rank, row in enumerate(mesh):
+            dev = row[0]
+            local = {k: v.to(dev) for k, v in named.items()}
+            for i in range(b_local):
+                sample = sample_at(batch, rank * b_local + i).to(dev)
+                if augment:
+                    gen = torch.Generator(device=dev).manual_seed(_rotation_seed(seed, rank, i))
+                    sample = aug.rotate_sample(sample, aug.random_rotation_matrix(gen))
+                loss, m = dual_loss_and_metrics(model, local, sample, cfg,
+                                                row if gp_shard else None)
+                loss.backward()
+                for k, v in m.items():
+                    sums[k] = sums.get(k, 0) + v.detach().to(home)
+        fill_missing_grads(model)
+        for prm in named.values():
+            prm.grad.div_(float(b))
+        optimizer.step()
+        return {k: v / b for k, v in sums.items()}
+
+    return step

@@ -52,6 +52,19 @@ def to_jax_params(state: dict) -> dict:
     return {"params": root}
 
 
+def tree_of(model: torch.nn.Module) -> dict:
+    """The module's parameters (the tensors themselves, so that gradients
+    reach them) as the JAX nested tree: {"gnn_v": {"l_conv1": {"u": ...}}}."""
+    root: dict = {}
+    for name, prm in model.named_parameters():
+        node = root
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = prm
+    return root
+
+
 def save_npz(path: str, state: dict) -> None:
     """Flat .npz with keys "gnn_v/l_conv1/u", readable by either package."""
     np.savez(path, **{k.replace(".", "/"): v.detach().cpu().numpy()

@@ -36,8 +36,15 @@ reach get zero gradients, as jax.grad gives them), and streaming
 (`preload=False`): each epoch's samples are padded and copied by a worker
 thread `prefetch_depth` steps ahead (data/prefetch.py), into one SizePlan
 per size bucket with `buckets_growth > 1` (one CUDA graph per bucket plan).
-Not ported yet, and refused with NotImplementedError rather than taking
-another path: halo training and multi-device meshes.
+
+Several devices: with `dp * gp > 1` each epoch runs the step of
+parallel/api.py over a (dp, gp) grid of devices (`devices`, or every entry
+on the CPU with device="cpu", else the first dp*gp visible cards) on
+global batches of dp * batch_size samples, a short last batch filled by
+wrapping around the epoch's order, as the JAX trainer does; the step is
+eager.  `halo_parts > 1` routes `train()` to train/halo_trainer.py.
+Several hosts (`dcn > 1`) are refused with NotImplementedError, naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import augment, prefetch
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu_torch.parallel import api
 from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic, fill_missing_grads
 from geobignn_tpu_torch.train import checkpoint as ckpt
 from geobignn_tpu_torch.train import optim
@@ -95,12 +103,18 @@ class Trainer:
     `ckpt_best.pkl` and `ckpt_last.pkl` there."""
 
     def __init__(self, cfg: Config, train_ds, eval_ds=None, run_dir: str | None = None,
-                 device=None):
+                 device=None, devices=None):
         cfg.validate()
-        if cfg.dcn * cfg.dp * cfg.gp > 1:
-            not_ported("multi-device training (dp * gp * dcn > 1)",
-                       "modules to port, item 7, multi-device and halo paths")
+        if cfg.dcn > 1:
+            not_ported("multi-host training (dcn > 1)", api.MULTI_HOST)
         self.cfg = cfg
+        self.n_chips = cfg.dp * cfg.gp
+        self._mesh = None
+        if self.n_chips > 1:
+            if devices is None and resolve_device(device).type == "cpu":
+                devices = [torch.device("cpu")] * self.n_chips
+            self._mesh = api.make_mesh(cfg.dp, cfg.gp, devices)
+            device = self._mesh[0][0]
         self.device = resolve_device(device)
         self.train_ds = train_ds
         self.eval_ds = eval_ds
@@ -141,6 +155,13 @@ class Trainer:
         self._graphs: dict = {}  # signature of a sample -> capture.Graph of its step
         # the epoch's metric sums on the device (a captured step adds into them)
         self._sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
+        self._sharded_step = None
+        if self._mesh is not None:
+            dynamic = isinstance(self.model, DualGNNDynamic)
+            self._global_batch = cfg.dp * cfg.batch_size
+            self._sharded_step = api.make_sharded_train_step(
+                self.model, self.optimizer, self._mesh, cfg.loss_cfg(),
+                augment=cfg.augment, gp_shard=not dynamic)
 
     # ------------------------------------------------------------------
     def _get(self, ds, tag: str, idx: int):
@@ -230,7 +251,40 @@ class Trainer:
         # the parameters hold none, as after an eager step
         self.optimizer.zero_grad(set_to_none=True)
 
+    def _run_epoch_sharded(self, rng: np.random.Generator, logger=None):
+        """One epoch on the (dp, gp) grid: global batches of dp * batch_size
+        samples; the short last one is filled by wrapping around the order."""
+        order = rng.permutation(len(self.train_ds)).tolist()
+        b = self._global_batch
+        self.model.train()
+        sums, n_steps, msgs_done = {}, 0, 0
+        t0 = time.time()
+        for beg in range(0, len(order), b):
+            chunk = order[beg : beg + b]
+            while len(chunk) < b:  # wrap-around fill
+                chunk.append(order[(beg + len(chunk)) % len(order)])
+            if self._msgs is not None:
+                msgs_done += int(self._msgs[chunk].sum())
+            batch = api.stack_samples([self.train_ds.get(int(i), self.plan) for i in chunk])
+            metrics = self._sharded_step(batch, int(rng.integers(1 << 31)))
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0) + v.detach()
+            n_steps += 1
+        keys = list(sums)
+        vals = torch.stack([sums[k] for k in keys]).cpu().tolist()  # one sync
+        agg = {k: v / max(n_steps, 1) for k, v in zip(keys, vals)}
+        dt = max(time.time() - t0, 1e-9)
+        agg["samples_per_s"] = n_steps * b / dt
+        if self._msgs is not None:
+            agg["edges_per_s"] = msgs_done / dt
+            agg["edges_per_s_chip"] = msgs_done / dt / self.n_chips
+        if logger:
+            logger.log("train", self.epoch, **agg)
+        return agg
+
     def run_epoch(self, rng: np.random.Generator, logger: MetricLogger | None = None):
+        if self._sharded_step is not None:
+            return self._run_epoch_sharded(rng, logger)
         cfg = self.cfg
         order = rng.permutation(len(self.train_ds))
         for v in self._sums.values():
@@ -382,10 +436,66 @@ def snapshot_code(run_dir: str) -> str:
     return bak
 
 
-def train(cfg: Config, dataset_root: str | None = None, device=None) -> str:
+def _train_halo(cfg: Config, dataset_root: str | None, device, devices) -> str:
+    """Halo-mode training: whole meshes (no submesh split), each
+    node-partitioned over cfg.halo_parts parts; the run directory, logging,
+    resume and restore of the standard path."""
+    from geobignn_tpu_torch.data.dataset import discover_mesh_pairs
+    from geobignn_tpu_torch.meshio import read_obj
+    from geobignn_tpu_torch.train.halo_trainer import HaloTrainer
+
+    resume_dir = find_resumable_run(cfg) if cfg.auto_resume else None
+    run_dir = resume_dir or make_run_dir(cfg)
+    stdout = sys.stdout
+    tee = sys.stdout = Tee(os.path.join(run_dir, "training_info.txt"))
+    try:
+        print(f"Halo training ({cfg.halo_parts} parts) flag: {cfg.flag} "
+              f"seed: {cfg.seed}\nrun_dir: {run_dir}")
+        cfg.to_json(os.path.join(run_dir, "params.json"))
+        snapshot_code(run_dir)
+        root = dataset_root or cfg.dataset_dir
+        pairs, eval_pairs = (
+            [(read_obj(n), read_obj(o))
+             for n, o in discover_mesh_pairs(root, cfg.data_type, split, f"{split}_list.txt")]
+            for split in ("train", "test"))
+        print(f"Training meshes: {len(pairs)}; eval: {len(eval_pairs)}")
+        trainer = HaloTrainer(cfg, pairs, eval_pairs, run_dir, device=device, devices=devices)
+        _fit_and_report(trainer, cfg, resume_dir, run_dir)
+    finally:
+        sys.stdout = stdout
+        tee.log.close()
+    return run_dir
+
+
+def _fit_and_report(trainer, cfg: Config, resume_dir: str | None, run_dir: str) -> None:
+    """Resume or restore, then fit with the metric stream and the epoch
+    report of both training paths."""
+    if resume_dir is not None:
+        trainer.restore(os.path.join(resume_dir, "ckpt_last.pkl"))
+        print(f"auto-resume: continuing {resume_dir} at epoch {trainer.epoch}")
+    elif cfg.restore and cfg.model_path:
+        trainer.restore(cfg.model_path)
+    logger = MetricLogger(os.path.join(run_dir, "metrics.jsonl"))
+
+    def report(tr, train_m, eval_m):
+        m = eval_m or train_m  # eval split may be empty
+        if tr.epoch % 10 == 0 or m["error_f"] <= tr.best_error:
+            print(
+                f"Epoch {tr.epoch:>3}: loss {m['loss_v']:.4f} "
+                f"{m['loss_f']:.4f} | error {m['error_v']:.4f} "
+                f"{m['error_f']:.4f}"
+            )
+
+    best = trainer.fit(logger, report)
+    print(f"best error: {best}")
+    logger.close()
+
+
+def train(cfg: Config, dataset_root: str | None = None, device=None, devices=None) -> str:
     """Full training entry: datasets from disk, run-dir artefacts, fit.
     Returns the run directory.  While it runs, stdout is teed into
-    `training_info.txt`; it is put back before the function returns."""
+    `training_info.txt`; it is put back before the function returns.
+    `devices` places the parts (halo_parts) or the (dp, gp) grid."""
     from geobignn_tpu_torch.data.dataset import DualDataset
 
     device = resolve_device(device)
@@ -395,8 +505,7 @@ def train(cfg: Config, dataset_root: str | None = None, device=None) -> str:
     np.random.seed(cfg.seed)
     cfg.validate()
     if cfg.halo_parts and cfg.halo_parts > 1:
-        not_ported("halo training (halo_parts > 1)",
-                   "modules to port, item 7, multi-device and halo paths")
+        return _train_halo(cfg, dataset_root, device, devices)
 
     resume_dir = find_resumable_run(cfg) if cfg.auto_resume else None
     run_dir = resume_dir or make_run_dir(cfg)
@@ -418,26 +527,8 @@ def train(cfg: Config, dataset_root: str | None = None, device=None) -> str:
         )
         print(f"Training set: {len(train_ds)} samples; eval: {len(eval_ds)}")
 
-        trainer = Trainer(cfg, train_ds, eval_ds, run_dir, device=device)
-        if resume_dir is not None:
-            trainer.restore(os.path.join(resume_dir, "ckpt_last.pkl"))
-            print(f"auto-resume: continuing {resume_dir} at epoch {trainer.epoch}")
-        elif cfg.restore and cfg.model_path:
-            trainer.restore(cfg.model_path)
-        logger = MetricLogger(os.path.join(run_dir, "metrics.jsonl"))
-
-        def report(tr, train_m, eval_m):
-            m = eval_m or train_m  # eval split may be empty
-            if tr.epoch % 10 == 0 or m["error_f"] <= tr.best_error:
-                print(
-                    f"Epoch {tr.epoch:>3}: loss {m['loss_v']:.4f} "
-                    f"{m['loss_f']:.4f} | error {m['error_v']:.4f} "
-                    f"{m['error_f']:.4f}"
-                )
-
-        best = trainer.fit(logger, report)
-        print(f"best error: {best}")
-        logger.close()
+        trainer = Trainer(cfg, train_ds, eval_ds, run_dir, device=device, devices=devices)
+        _fit_and_report(trainer, cfg, resume_dir, run_dir)
     finally:
         sys.stdout = stdout
         tee.log.close()

@@ -106,9 +106,13 @@ def test_train_infer_eval_chain(tmp_path, monkeypatch):
     os.remove(os.path.join(test_dir, "result_smoke", res[0]))
     cli.main(["infer", f"--run_dir={run_dir}", f"--dataset_root={root}", "--device=cpu"])
     assert sorted(os.listdir(os.path.join(test_dir, "result_smoke"))) == res
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["infer", f"--run_dir={run_dir}", f"--dataset_root={root}",
-                  "--halo_parts=2", "--device=cpu"])
+    # halo inference: each mesh node-partitioned over 2 parts, both on the CPU
+    os.remove(os.path.join(test_dir, "result_smoke", res[0]))
+    cli.main(["infer", f"--run_dir={run_dir}", f"--dataset_root={root}",
+              "--halo_parts=2", "--halo_banded", "--device=cpu"])
+    assert sorted(os.listdir(os.path.join(test_dir, "result_smoke"))) == res
+    out = meshio.read_obj(os.path.join(test_dir, "result_smoke", res[0]))
+    assert np.isfinite(out.points).all()
 
     # eval, as a module run in a process of its own
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,0 +1,165 @@
+"""The halo-sharded model and its serving path against the JAX package and
+against the port's own single-device model.
+
+  * `halo_dual_gnn` in table mode against the JAX function under
+    `shard_map` on the virtual CPU devices: 1e-5 of max|out|;
+  * the exact-parity analog: the halo forward and every parameter gradient
+    against the port's single-device DualGNN on the same owner-constrained
+    hierarchies, 1e-5 of max (per tensor);
+  * `Predictor.predict_mesh_halo` against the JAX predictor's: positions
+    within 1e-4 mean edge lengths, normals 1e-4;
+  * banded mode against the port's own table mode through
+    `Predictor.denoise` (the JAX package's pair,
+    test_halo_denoise_banded_matches_table_mode): 2e-2 / 5e-2.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from geobignn_tpu import native as jnative
+from geobignn_tpu.config import Config as JConfig
+from geobignn_tpu.data import synth as jsynth
+from geobignn_tpu.data.builder import BuildConfig as JBuildConfig
+from geobignn_tpu.infer.predict import Predictor as JPredictor
+from geobignn_tpu.parallel import halo_model as jhm
+from geobignn_tpu.parallel import halo_train as jht
+from geobignn_tpu.parallel.api import make_mesh as jmake_mesh
+from geobignn_tpu_torch import params as pm
+from geobignn_tpu_torch import structs, testing
+from geobignn_tpu_torch.config import Config
+from geobignn_tpu_torch.data import builder
+from geobignn_tpu_torch.infer.predict import Predictor
+from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu_torch.parallel import halo_train as ht
+from geobignn_tpu_torch.parallel import partition as hp
+from geobignn_tpu_torch.pool.hierarchy import build_hierarchy
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    testing.match_reference_native(jnative)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    m_o = jsynth.icosphere(2)
+    return jsynth.add_noise(m_o, 0.2, seed=1), m_o
+
+
+def _jax_halo_forward(params_tree, js):
+    """JAX's halo_dual_gnn over the sample's parts under shard_map."""
+    n_parts = js.structure.v.levels[0].n_parts
+    a = js.arrays
+    specs = (P(), P("gp"), P("gp"), jax.tree.map(lambda _: P("gp"), a["d"]))
+
+    def fn(p, xv, xf, d):
+        sl = jax.tree.map(lambda t: t[0], d)
+        v, n = jhm.halo_dual_gnn(p, xv[0], xf[0], sl, js.static, axis="gp")
+        return v[None], n[None]
+
+    out = jax.jit(jax.shard_map(fn, mesh=jmake_mesh(1, n_parts), in_specs=specs,
+                                out_specs=(P("gp"), P("gp")), check_vma=False))(
+        params_tree, jnp.asarray(a["xv"]), jnp.asarray(a["xf"]),
+        jax.tree.map(jnp.asarray, a["d"]))
+    return [np.asarray(o) for o in out]
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+def test_halo_dual_gnn_matches_jax(pair, n_parts):
+    m_n, m_o = pair
+    model = DualGNN(device="cpu", seed=3)
+    s = ht.build_halo_train_sample(m_n, m_o, builder.BuildConfig(granularity=16), n_parts)
+    js = jht.build_halo_train_sample(m_n, m_o, JBuildConfig(granularity=16), n_parts)
+    v_want, n_want = _jax_halo_forward(pm.to_jax_params(model.state_dict())["params"], js)
+    v_got, n_got = ht.make_halo_forward(model, s.static)(s.arrays)
+    for got, want in ((v_got, v_want), (n_got, n_want)):
+        got = np.stack([g.numpy() for g in got])
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _single_device_sample(m_n, m_o, cfg, n_parts, seed):
+    """The port's single-device sample over the owner-constrained
+    hierarchies the halo sample builds (clusters must be shared)."""
+    bv, bf, meta = builder.build_raw(m_n, m_o, cfg)
+    owner_v = hp.partition_nodes(bv.edge_index, bv.n_nodes, n_parts, seed=seed)
+    owner_f = owner_v[meta["fv_indices"][:, 0]].astype(np.int32)
+    bv.specs = build_hierarchy(bv.edge_index, bv.edge_weight, bv.x, bv.n_nodes,
+                               owner=owner_v, weight_type=cfg.weight_type)
+    bf.specs = build_hierarchy(bf.edge_index, bf.edge_weight, bf.x, bf.n_nodes,
+                               owner=owner_f, weight_type=cfg.weight_type)
+    plan = builder.plan_for(bv, bf, cfg.granularity)
+    gv, gf = builder._pad_branch(bv, plan.v), builder._pad_branch(bf, plan.f)
+    fv_pad = np.full((plan.f.n1, 3), plan.v.n1 - 1, np.int32)
+    fv_pad[: bf.n_nodes] = meta["fv_indices"]
+    return structs.DualSample(
+        v=gv, f=gf, fv_indices=fv_pad, edge_dual_v=np.zeros(1, np.int32),
+        edge_dual_f=np.zeros(1, np.int32), centroid=meta["centroid"].astype(np.float32),
+        scale=np.float32(meta["scale"])).to(CPU)
+
+
+def test_halo_forward_and_gradients_match_single_device(pair):
+    """The exact-parity analog: 4 halo parts against the port's DualGNN on
+    the same hierarchies, outputs and every parameter's gradient of the
+    masked L1 loss within 1e-5 of its max."""
+    m_n, m_o = pair
+    cfg = builder.BuildConfig(granularity=16)
+    s = ht.build_halo_train_sample(m_n, m_o, cfg, 4, seed=4)
+    sample = _single_device_sample(m_n, m_o, cfg, 4, seed=4)
+    with testing.without_remat():
+        model = DualGNN(device="cpu", seed=11)
+        v_ref, n_ref = model(sample)
+        mv, mf = sample.v.levels[0].node_mask, sample.f.levels[0].node_mask
+        loss = (((v_ref - sample.v.y).abs().sum(1) * mv).sum() / mv.sum()
+                + ((n_ref - sample.f.y).abs().sum(1) * mf).sum() / mf.sum())
+        g_ref = torch.autograd.grad(loss, list(model.parameters()))
+        halo_loss, _ = ht._halo_loss(pm.tree_of(model), s.arrays, s.static, "max", {})
+        g_halo = torch.autograd.grad(halo_loss, list(model.parameters()))
+    np.testing.assert_allclose(float(halo_loss.detach()), float(loss.detach()), rtol=1e-5)
+    v_got, n_got = ht.make_halo_forward(model, s.static)(s.arrays)
+    v_got, n_got = ht.unshard_predictions(s, v_got, n_got)
+    n_v, n_f = s.n_v, s.n_f
+    for got, want in ((v_got, v_ref[:n_v]), (n_got, n_ref[:n_f])):
+        want = want.detach().numpy()
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    names = [k for k, _ in model.named_parameters()]
+    assert len(names) == 72
+    for name, a, b in zip(names, g_halo, g_ref):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max() + 1e-12, name
+
+
+def test_predict_mesh_halo_matches_jax():
+    """The serving path: the same weights in both predictors, 4 parts;
+    the perm restore, scale and centroid included."""
+    m_n = jsynth.add_noise(jsynth.icosphere(2), 0.15, seed=0)
+    cfg = dict(granularity=64, seed=0)
+    pred = Predictor(Config(**cfg), DualGNN(device="cpu", seed=5).state_dict(), device="cpu")
+    jpred = JPredictor(JConfig(**cfg), pm.to_jax_params(pred.model.state_dict()))
+    vp, nf = pred.predict_mesh_halo(m_n, n_parts=4)
+    jvp, jnf = jpred.predict_mesh_halo(m_n, n_parts=4)
+    mel = np.linalg.norm(m_n.points[m_n.ev_indices[:, 0]] - m_n.points[m_n.ev_indices[:, 1]],
+                         axis=1).mean()
+    assert np.abs(vp - jvp).max() <= 1e-4 * mel
+    assert np.abs(nf - jnf).max() <= 1e-4
+    with pytest.raises(ValueError, match="n_parts"):
+        pred.predict_mesh_halo(m_n)
+
+
+def test_halo_denoise_banded_matches_table_mode():
+    """halo_banded end to end through Predictor.denoise: the banded
+    aggregate (bf16 operands) on each part's band against table mode."""
+    m_n = jsynth.add_noise(jsynth.icosphere(2), 0.15, seed=2)
+    pred = Predictor(Config(granularity=64, seed=0), DualGNN(device="cpu", seed=5).state_dict(),
+                     device="cpu")
+    v_b, n_b = pred.denoise(m_n, n_update_iters=3, halo_parts=4, halo_banded=True)
+    v_t, n_t = pred.denoise(m_n, n_update_iters=3, halo_parts=4)
+    np.testing.assert_allclose(v_b, v_t, atol=2e-2)
+    np.testing.assert_allclose(n_b, n_t, atol=5e-2)
+    assert v_b.shape == (m_n.n_vertices, 3) and np.isfinite(v_b).all()

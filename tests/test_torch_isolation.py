@@ -82,10 +82,11 @@ def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
     assert Trainer(Config(granularity=32), ds, device="cpu").device.type == "cpu"
 
 
-def test_no_level_structure_raises_not_ported():
+def test_no_level_structure_raises_not_ported(tmp_path):
     """FeaStConv dispatches every level structure the host builders make,
-    and the fusion layer constructs; what is still missing (multi-device
-    training, halo training) names its ROADMAP item, 7."""
+    and the fusion layer constructs; dp, gp and halo training route to
+    their paths; what is still missing (several hosts, dcn > 1) names its
+    ROADMAP item, 10."""
     import inspect
 
     from geobignn_tpu_torch.config import Config
@@ -102,7 +103,14 @@ def test_no_level_structure_raises_not_ported():
 
     ds = InMemoryDataset([(synth.icosphere(1), synth.icosphere(1))],
                          BuildConfig(granularity=32, reorder=True))
-    with pytest.raises(NotImplementedError, match=r"multi-device.*ROADMAP.*item 7"):
-        Trainer(Config(granularity=32, dp=2), ds, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"halo.*ROADMAP.*item 7"):
-        train(Config(halo_parts=2), device="cpu")
+    for kw in (dict(dp=2), dict(gp=2)):
+        tr = Trainer(Config(granularity=32, **kw), ds, device="cpu")
+        assert tr._sharded_step is not None and tr.n_chips == 2
+    with pytest.raises(NotImplementedError, match=r"multi-host.*ROADMAP.*item 10"):
+        Trainer(Config(granularity=32, dcn=2), ds, device="cpu")
+    # halo training routes to train/halo_trainer.py: its dataset lookup runs
+    with pytest.raises(FileNotFoundError):
+        train(Config(halo_parts=2, dataset_dir=str(tmp_path / "none"),
+                     log_dir=str(tmp_path)), device="cpu")
+    (info,) = tmp_path.glob("*/*/training_info.txt")
+    assert info.read_text().startswith("Halo training (2 parts)")

@@ -1,0 +1,158 @@
+"""Data parallel (dp) and graph parallel (gp) against the JAX package.
+
+One dp=2 step of `parallel/api.make_sharded_train_step` against JAX's
+`make_sharded_train_step` on a (2, 1) mesh of virtual CPU devices, and one
+gp=2 forward (each conv's edges cut over two devices) against JAX's
+gp-only forward, both within 1e-4; the trainer's sharded epoch (global
+batches, the wrap-around fill) and the routing of dp, gp and dcn.  The port
+runs every grid entry on the CPU.  The step comparison reads the mean
+gradient the step applies: the JAX step's optimizer is a transformation
+that hands the gradient back as its state (a parameter change below a
+float32 ulp of the parameter would lose it), the port's is left in .grad.
+The samples are the default Config's (reorder=True): with reorder=False
+the JAX sharded model's gradients sit up to 2.3e-2 of max|g| from a
+float64 step where the port's sit within 1.2e-4 (ROADMAP §3).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from geobignn_tpu import native as jnative
+from geobignn_tpu import parallel as jparallel
+from geobignn_tpu.data import synth as jsynth
+from geobignn_tpu.data.builder import BuildConfig as JBuildConfig
+from geobignn_tpu.data.builder import build_dual_sample as jbuild_dual_sample
+from geobignn_tpu.data.builder import build_raw as jbuild_raw
+from geobignn_tpu.data.builder import plan_for as jplan_for
+from geobignn_tpu.models import DualGNN as JDualGNN
+from geobignn_tpu_torch import params as pm
+from geobignn_tpu_torch import testing
+from geobignn_tpu_torch.config import Config
+from geobignn_tpu_torch.data import builder, dataset
+from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu_torch.parallel import api
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native():
+    testing.match_reference_native(jnative)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """Two icosphere(2) samples under one merged plan, in both packages."""
+    meshes = [(jsynth.add_noise(jsynth.icosphere(2), 0.2, seed=s), jsynth.icosphere(2))
+              for s in (1, 2)]
+    jcfg = JBuildConfig(granularity=64, reorder=True)
+    cfg = builder.BuildConfig(granularity=64, reorder=True)
+    plan = None
+    for m_n, m_o in meshes:
+        p = jplan_for(*jbuild_raw(m_n, m_o, jcfg)[:2], jcfg.granularity)
+        plan = p if plan is None else plan.merge(p)
+    jsamples = [jbuild_dual_sample(m_n, m_o, jcfg, plan)[0] for m_n, m_o in meshes]
+    tplan = builder.plan_for(*builder.build_raw(*meshes[0], cfg)[:2], 64)
+    tplan = tplan.merge(builder.plan_for(*builder.build_raw(*meshes[1], cfg)[:2], 64))
+    samples = [builder.build_dual_sample(m_n, m_o, cfg, tplan)[0] for m_n, m_o in meshes]
+    return samples, jsamples
+
+
+def test_stack_samples_round_trip(batch):
+    samples, jsamples = batch
+    stacked = api.stack_samples(samples)
+    assert api.batch_size_of(stacked) == 2
+    jstacked = jparallel.stack_samples(jsamples)
+    np.testing.assert_array_equal(stacked.v.levels[0].edge_index,
+                                  jstacked.v.levels[0].edge_index)
+    back = api.sample_at(stacked, 1)
+    np.testing.assert_array_equal(back.f.x, samples[1].f.x)
+    assert back.v.steps[0].n_out == samples[1].v.steps[0].n_out
+
+
+def test_dp_step_matches_jax(batch):
+    """dp=2: each replica one sample, the gradients summed and divided by
+    the global batch, one optimizer step: the metrics and the applied
+    gradient within 1e-4 (of max|g| per tensor); SGD moves the parameters
+    by exactly that gradient."""
+    samples, jsamples = batch
+    model = DualGNN(device="cpu", seed=0)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=1.0)
+    step = api.make_sharded_train_step(model, opt, api.make_mesh(2, 1, [CPU] * 2))
+    metrics = step(api.stack_samples(samples), 0)
+
+    grab = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p),
+        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    params = {"params": pm.to_jax_params(before)["params"]}
+    stacked = jparallel.stack_samples(jsamples)
+    jstep = jparallel.make_sharded_train_step(JDualGNN(gp_axis="gp"), grab,
+                                              jparallel.make_mesh(2, 1), stacked)
+    _, jgrads, jm = jstep(params, grab.init(params), stacked, jax.random.PRNGKey(0))
+    for k in ("loss", "loss_v", "loss_f", "error_v", "error_f"):
+        assert abs(float(metrics[k]) - float(jm[k])) <= 1e-4 * abs(float(jm[k])), k
+    jflat = pm.from_jax_params(jax.tree.map(np.asarray, jgrads))
+    for name, prm in model.named_parameters():
+        want = jflat[name]
+        assert (prm.grad - want).abs().max() <= 1e-4 * want.abs().max(), name
+        assert torch.equal(prm.detach(), before[name] - prm.grad), name
+
+
+def test_gp_forward_matches_jax(batch):
+    """gp=2: every conv's edge list cut over two devices, the partial
+    aggregates and degrees summed; against JAX's gp-only forward."""
+    samples, jsamples = batch
+    model = DualGNN(device="cpu", seed=1)
+    params = {"params": pm.to_jax_params(model.state_dict())["params"]}
+    stacked = jparallel.stack_samples(jsamples[:1])
+    model_sh = JDualGNN(gp_axis="gp")
+    specs = jparallel.batch_pspecs(stacked)
+
+    def fwd(p, b):
+        return jax.lax.pmean(model_sh.apply(p, jax.tree.map(lambda x: x[0], b)), "dp")
+
+    want = jax.jit(jax.shard_map(fwd, mesh=jparallel.make_mesh(1, 2), in_specs=(P(), specs),
+                                 out_specs=P(), check_vma=True))(params, stacked)
+    with torch.no_grad():
+        got = model(samples[0].to(CPU), gp_devices=[CPU, CPU])
+        whole = model(samples[0].to(CPU), gp_devices=[CPU])  # one shard
+    for g, w, one in zip(got, want, whole):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
+        assert np.abs(g.numpy() - one.numpy()).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("grid", [dict(dp=2), dict(gp=2)])
+def test_trainer_sharded_epoch(grid):
+    """Trainer with dp=2 or gp=2 on the CPU: three samples in global
+    batches of dp, the last filled by wrapping around; dcn > 1 is refused,
+    naming its ROADMAP item."""
+    m_o = jsynth.icosphere(1)
+    ds = dataset.InMemoryDataset(
+        [(jsynth.add_noise(m_o, 0.2, seed=s), m_o) for s in range(3)],
+        builder.BuildConfig(granularity=32, reorder=True))
+    tr = Trainer_(Config(granularity=32, seed=2, max_epoch=2, **grid), ds)
+    assert tr._mesh == api.make_mesh(grid.get("dp", 1), grid.get("gp", 1),
+                                     [CPU] * (grid.get("dp", 1) * grid.get("gp", 1)))
+    hist = []
+    tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+    steps = -(-3 // tr._global_batch)
+    assert hist[0]["samples_per_s"] > 0 and np.isfinite(hist[-1]["loss"])
+    assert hist[0]["edges_per_s_chip"] == pytest.approx(hist[0]["edges_per_s"] / tr.n_chips)
+    assert steps == (2 if grid.get("dp") else 3)
+    with pytest.raises(NotImplementedError, match="item 10, multi-host dcn"):
+        Trainer_(Config(granularity=32, dcn=2), ds)
+
+
+def Trainer_(cfg, ds):
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    return Trainer(cfg, ds, device="cpu")

@@ -244,8 +244,10 @@ def test_trainer_matches_jax(batch_size):
 
 
 def test_trainer_refuses_unported_modes():
-    """Multi-device training is still refused, naming its ROADMAP item; the
-    single-device modes of the JAX trainer are routed as there (bf16
+    """Several hosts (dcn > 1) are still refused, naming their ROADMAP item;
+    dp and gp route to the sharded step (tests/test_torch_parallel.py holds
+    them against JAX); the single-device modes of the JAX trainer are
+    routed as there (bf16
     activations, fusion, dynamic pooling, streaming, bucketing;
     tests/test_torch_precision.py, test_torch_fusion.py,
     test_torch_dynamic.py and test_torch_prefetch.py hold them against
@@ -255,9 +257,11 @@ def test_trainer_refuses_unported_modes():
 
     ds = dataset.InMemoryDataset([_pair(synth, 1, 1)],
                                  builder.BuildConfig(granularity=32, reorder=True))
-    for kw in (dict(dp=2), dict(gp=2), dict(dcn=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP: modules to port, item 7"):
-            Trainer(Config(granularity=32, **kw), ds, device="cpu")
+    for kw in (dict(dp=2), dict(gp=2)):
+        tr = Trainer(Config(granularity=32, **kw), ds, device="cpu")
+        assert tr._sharded_step is not None and type(tr.model) is DualGNN
+    with pytest.raises(NotImplementedError, match="ROADMAP: modules to port, item 10"):
+        Trainer(Config(granularity=32, dcn=2), ds, device="cpu")
     routes = [(dict(edge_weight_type=3), DualGNNDynamic), (dict(dynamic_pool=True), DualGNNDynamic),
               (dict(precision="bfloat16"), DualGNN), (dict(fusion_features=4), DualGNN),
               (dict(preload=False), DualGNN), (dict(preload=False, buckets_growth=1.5), DualGNN)]
