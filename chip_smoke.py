@@ -49,7 +49,8 @@ non-zero without the final result line:
      absent neighbours at both ends of the band, mask values 2 and 3, D
      under the clamp, a row and a node with more set slots than one batch
      of 32) through every aggregate kernel, forward and backward,
-     banded and block-sparse, both compute dtypes, against the plain
+     banded and block-sparse, both compute dtypes, at 9 heads and at 6
+     (FeaStGNNPrePool's), both schedules each, against the plain
      versions (`[edge]` lines);
   7. the training path at the default model's full width, twice: an
      InMemoryDataset of two (noisy, clean) icosphere(5) pairs split into 4
@@ -165,14 +166,15 @@ non-zero without the final result line:
      predict_mesh_halo on add_noise(icosphere(5), 0.2, seed=0) over
      HALO_PARTS (4) parts, devices=[cuda:0] * 4, in table mode and with
      banded=True: each level's mode per branch; the launches of #1/#2 by
-     kernel name (profiled), parts x banded level-1 convs, beside the
-     expected count (each shows, at most as often as its wrapper
-     launched it); host build, the 4 parts' forward (CUDA events) and the
+     kernel name (profiled) and by the wrappers, each equal to parts x
+     banded level-1 convs; host build, the 4 parts' forward (CUDA events) and the
      60 updates timed apart; each mode against the same call with
      device="cpu" (POS_TOL_MEL / NORMAL_TOL); table mode against the
      single-device DualGNN on the same owner-constrained hierarchies
      (F32_TOL of max); banded with float32 aggregates against table mode
-     (POS_TOL_MEL / NORMAL_TOL; the default's bf16 distance printed); every
+     (POS_TOL_MEL / NORMAL_TOL), and with the default's bf16 operands
+     (POS_TOL_MEL / HALO_BF16_NORMAL_TOL, a multiple of the JAX package's
+     own bf16 distance on this mesh, see the constant); every
      recorded banded call against its plain version (`[kernel]` lines);
  16. [halo-train]: HaloTrainer(Config(halo_parts=4, halo_banded=True,
      max_epoch=2)) on two icosphere(5) pairs (noise seeds 0 and 6) over
@@ -182,25 +184,50 @@ non-zero without the final result line:
      the CPU against the single-device full-batch float64 step on the same
      hierarchies (F32_GRAD_TOL); Trainer.fit, #1-#4 counted by the
      wrappers (4 steps x 24 each way) and on one more step by kernel name
-     (profiled: each shows, at most as often as launched), loss per epoch,
+     (profiled) and by the wrappers, equal, loss per epoch,
      s/step, edges/s; the comm report's
      bytes per conv against the single-device step's time; each recorded
      backward call against its plain backward (`[kernel-bwd]` lines);
- 17. [dp] / [gp]: Trainer(Config(dp=2)) and Config(gp=2) on [cuda:0] * 2
-     over phase 7's seeds-(0, 6) patches, float32 heads: one sharded step's
+ 17. [dp] / [gp] / [dcn]: Trainer(Config(dp=2)), Config(gp=2) and
+     Config(dcn=2, dp=1) (one process holding the (2, 1, 1) grid) on
+     [cuda:0] * 2 over phase 7's seeds-(0, 6) patches, float32 heads: one sharded step's
      gradient against the single-device step of the same model
      (F32_GRAD_TOL), then Trainer.fit (1 epoch); no aggregate wrapper launches
      (the sharded model's convs are the COO conv, as the JAX model's with
      gp_axis).  Several parts or grid entries on one card run one after
      another on one stream: no time of phases 15-17 is a multi-card time;
+ 18. [legacy], after each training set's phase 7: the four legacy models
+     (models/legacy.py: FacetAttentionGNN, FGCNet at 9 heads, 9 x 128 =
+     1,152 wide, FeaStGNNPrePool at 6, GATGNN) with seeded weights on the
+     facet branch of that set's patch 0 (20,000 faces; seeds (0, 6) all
+     banded, (1, 2) its finest level block-sparse), on the input slices of
+     tests/test_legacy_models.py: the forward and backward of the summed
+     squared error counted (#1-#6 by kernel name and by the wrappers, each
+     equal to the FeaStConvs' schedules on their levels; GCN and GAT launch
+     none) and recorded, each recorded call against its plain version
+     (`[kernel]` / `[kernel-bwd]` lines at 6 and 9 heads); the forward on
+     the card against device="cpu" (NORMAL_TOL); the float32 gradients
+     (aggregates in float32) against the CPU's, held to the card's
+     branches, within F32_GRAD_TOL — a tensor whose float32 sum cancels
+     (FacetAttentionGNN's a2.bias, one scalar summed over every row) within
+     three times the CPU's own distance from the float64 step, as
+     tests/test_torch_legacy.py; forward and forward+backward times (CUDA
+     events, median of 20);
+ 19. [icp]: utils.icp_align on the card against device="cpu" on the
+     icosphere(5) vertex set and a rotated, shifted copy (every nearest
+     point unique): R and t within 1e-5; its time;
+ 20. [viz]: viz.hausdorff_heatmap of phase 3's served result through #7
+     (counted) against device="cpu": the squared distances within
+     NEAREST_TOL, the .off files written; then `[profile]`: what each
+     counted run's profile recorded of its launch calls (see _counted);
  10. one JSON line of the nine kernels, then the result line.  An
      aggregate's `launches` is what the device ran in the main path's runs
      (a profile, by kernel name: each launch runs one row_walk_kernel,
      whose template arguments name the aggregate): the forward ones from the
      two served meshes and the halo mesh, the backward ones from
-     Trainer.fit, and both from the counted runs of phases 11-14 and 16;
-     nearest's is its wrapper's count in
-     the evaluation, which no graph holds.
+     Trainer.fit, and both from the counted runs of phases 11-14, 16 and
+     18; nearest's is its wrapper's count in the evaluation and in [viz],
+     which no graph holds.
 
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
 max|out| (both round the same operands to bf16, but a D summed in another
@@ -254,6 +281,7 @@ closest pairs, so the error of the distances is printed beside it.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -271,6 +299,12 @@ NEAREST_TOL = 1e-5  # of max(|a|^2 + |b|^2), on squared distances
 BF16_TOL, F32_TOL = 2e-2, 1e-4
 HALO_PARTS = 4  # parts of the halo phases, all on cuda:0
 POS_TOL_MEL, NORMAL_TOL = 2e-2, 5e-2
+# [halo], banded with bf16 aggregate operands against table mode: the JAX
+# package's own normal distance on that mesh with phase 3's weights (its
+# CPU run: python tests/test_torch_halo_model.py 5), times the multiple the
+# witness test holds the port's distance to there (icosphere(4))
+JAX_HALO_BF16_NORMALS, HALO_WITNESS = 6.176e-2, 1.25
+HALO_BF16_NORMAL_TOL = 7.7e-2  # HALO_WITNESS * JAX_HALO_BF16_NORMALS
 FWD = ("aggregate_first", "transform_first")
 AGGREGATES = tuple(pre + k + suf for suf in ("", "_bwd") for pre in ("", "bs_") for k in FWD)
 KERNELS = AGGREGATES + ("nearest",)
@@ -316,6 +350,11 @@ _BS = "geobignn_tpu/ops/blocksparse.py"
 # a float64 step (see the docstring)
 F32_GRAD_TOL = 2e-4
 MAX_HELD = 16  # values a step may hold to the card's branch (testing.same_branches)
+# [legacy]: the same, for one legacy model's step; GATGNN's ReLU heads alone
+# take 20,000 x 640 activation inputs (it held 35-99 a step on an NVIDIA
+# H100 80GB HBM3): at most about 2e-5 of a model's activation inputs, each
+# a near-tie within TIE_TOL
+LEGACY_MAX_HELD = 256
 # epoch losses, streamed over size buckets against one merged plan preloaded,
 # on the card and on the CPU, relative (see the docstring)
 BUCKET_TOL = 1e-3
@@ -503,28 +542,116 @@ def _recording(captured, backward=False):
             setattr(mod, attr, fn)
 
 
+# Each counted run's profile (PERF.md §7, profile_windows.py): the profiler
+# keeps a device record only where its time, converted to the host's clock,
+# lies inside the window it opened, and that conversion wanders by
+# milliseconds, so the run starts PROFILE_SETTLE_S after the window opens
+# and ends as long before it closes; and a window loses more of its first
+# kernel records the more profiles the process has opened before it (about
+# one more a profile: 25 by the 60th), so PROFILE_PRIMER tiny launches open
+# the window and take those losses in place of the run's
+PROFILE_SETTLE_S = 0.05
+PROFILE_PRIMER = 256
+PROFILE_WINDOWS: list = []  # one _launch_records() summary per counted run
+
+
+def _launch_records(prof) -> dict:
+    """What one profile recorded of the launches made inside it, from the
+    profiler's raw records (before any grouping by name): the CUDA runtime's
+    launch calls; the device kernels; the launch calls with no kernel
+    record, those of the primer apart, the others by the innermost operation
+    around each and the runtime call before it (a launch recorded into a
+    CUDA graph has none); the least time from a launch call to its kernel's
+    start (negative where the device's clock, converted to the host's, runs
+    behind it); and the aggregate kernels among the raw records by name."""
+    import profile_train_step as pts
+
+    events = prof.profiler.kineto_results.events()
+    cpu = [e for e in events if str(e.device_type()).endswith("CPU")]
+    calls = {e.correlation_id(): e for e in cpu if e.name().startswith("cudaLaunchKernel")}
+    kernels = {e.correlation_id(): e.start_ns() for e in events
+               if str(e.device_type()).endswith("CUDA")
+               and not e.name().startswith(("Memcpy", "Memset"))}
+    raw = {}
+    for e in events:
+        key = pts.aggregate_of(e.name()) if str(e.device_type()).endswith("CUDA") else None
+        if key is not None:
+            raw[key] = raw.get(key, 0) + 1
+    ops: dict = {}  # by thread, in start order: operations, and runtime calls
+    runtime: dict = {}
+    for e in sorted(cpu, key=lambda e: e.start_ns()):
+        side = runtime if e.name().startswith("cu") else ops
+        side.setdefault(e.start_thread_id(), []).append(e)
+    starts = {t: [r.start_ns() for r in rs] for t, rs in runtime.items()}
+    around: dict = {}
+    in_primer = 0
+    open_ops: dict = {}  # by thread: [next operation, stack of the open ones]
+    for e in sorted((e for c, e in calls.items() if c not in kernels), key=lambda e: e.start_ns()):
+        t, tid = e.start_ns(), e.start_thread_id()
+        seq, state = ops.get(tid, []), open_ops.setdefault(tid, [0, []])
+        while state[0] < len(seq) and seq[state[0]].start_ns() <= t:
+            state[1].append(seq[state[0]])
+            state[0] += 1
+        stack = [o for o in state[1] if o.end_ns() >= t]  # operations nest on a thread
+        state[1] = stack
+        if any(o.name() == "primer" for o in stack):
+            in_primer += 1
+            continue
+        k = bisect.bisect_left(starts.get(tid, []), t)
+        name = (stack[-1].name() if stack else "(none)") + " after " + (
+            runtime[tid][k - 1].name() if k else "(none)")
+        around[name] = around.get(name, 0) + 1
+    missing = sum(around.values()) + in_primer
+    gaps = [kernels[c] - e.start_ns() for c, e in calls.items() if c in kernels]
+    return {"launch_calls": len(calls), "kernels": len(kernels), "unrecorded": missing,
+            "unrecorded_in_primer": in_primer, "unrecorded_in": around,
+            "min_launch_to_start_us": min(gaps) / 1e3 if gaps else None,
+            "aggregates_raw": raw}
+
+
 @contextlib.contextmanager
 def _counted():
     """Counts of one run of the main path.  Yields a dict filled on exit:
     "wrappers", the wrappers' counts (banded_cuda.LAUNCHES, zeroed on
     entry: eager launches and those recorded into a capture), and "device",
     the aggregate kernels the device ran (a profile of the run, by kernel
-    name: eager launches and those of every replay)."""
+    name: eager launches and those of every replay).  Nothing runs on the
+    card when the profile opens; the run starts PROFILE_SETTLE_S after it
+    opens, behind PROFILE_PRIMER launches of a tiny kernel, and ends
+    PROFILE_SETTLE_S before it closes (profile_windows.py measures what a
+    window opened without these loses)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     import profile_train_step as pts
 
     from geobignn_tpu_torch.ops import banded_cuda
 
     out: dict = {}
+    torch.cuda.synchronize()
     banded_cuda.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SETTLE_S)
+        with record_function("primer"):
+            one = torch.zeros(1, device="cuda")
+            for _ in range(PROFILE_PRIMER):
+                one.add_(1.0)
+            torch.cuda.synchronize()
         yield out
         torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
     out["wrappers"] = dict(banded_cuda.LAUNCHES)
     out["device"] = {**dict.fromkeys(AGGREGATES, 0),
                      **pts.aggregate_launches(pts.device_kernels(prof))}
+    out["records"] = _launch_records(prof)
+    out["records"]["raw_equals_grouped"] = out["records"]["aggregates_raw"] == _nonzero(
+        out["device"])
+    PROFILE_WINDOWS.append(out["records"])
+
+
+def _aggregates(counts):
+    """The aggregate kernels' entries of a launch count."""
+    return {k: counts[k] for k in AGGREGATES}
 
 
 def _replayed(cnt, graph, replays, captures):
@@ -628,10 +755,14 @@ def check_edge_cases():
 
     from geobignn_tpu_torch.testing import edge_case_inputs
 
-    for c_in, c_out in ((64, 32), (128, 64), (12, 32), (6, 32), (128, 128)):
+    # 9 heads (DualGNN, FGCNet: 9 x 128 = 1,152, the kernels' widest), and 6
+    # (FeaStGNNPrePool), both schedules
+    for c_in, c_out, heads in ((64, 32, 9), (128, 64, 9), (12, 32, 9), (6, 32, 9),
+                               (128, 128, 9), (6, 32, 6), (64, 32, 6), (128, 128, 6),
+                               (128, 64, 6)):
         tf = c_out < c_in
         for bs in (False, True):
-            case = edge_case_inputs(c_in, c_out, tile=64, n_blk=3, seed=c_in,
+            case = edge_case_inputs(c_in, c_out, tile=64, n_blk=3, heads=heads, seed=c_in,
                                     blocksparse=bs)
             names = ("r", "p", "x", "w", "m") + (("blk_idx",) if bs else ())
             args = [torch.from_numpy(case[k]).cuda() for k in names]
@@ -659,7 +790,7 @@ def check_edge_cases():
                 empty = (args[4].reshape(out.shape[0], -1) == 0).all(dim=1)
                 assert bool(empty.any()) and bool((out[empty] == 0).all())
                 worst[str(dt)] = max(errs.values())
-            print(f"[edge] {name} and its backward, {c_in}->{c_out}, mask "
+            print(f"[edge] {name} and its backward, {heads} heads, {c_in}->{c_out}, mask "
                   f"{tuple(args[4].shape)}: worst relative error "
                   + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
                   + f" (tol {BF16_TOL} / {F32_TOL})")
@@ -690,7 +821,8 @@ def check_forward(key, ent, reps=20):
     dense_bound, _ = _bound_ms(byts, dense)
     n, c_in = args[2].shape
     row = dict(kernel=name, n=n, tile=args[4].shape[1], window=args[4].shape[2],
-               c_in=c_in, c_out=args[3].shape[2], calls=ent["calls"], max_abs_err=err,
+               heads=args[0].shape[1], c_in=c_in, c_out=args[3].shape[2], calls=ent["calls"],
+               max_abs_err=err,
                rel_err=err / scale, rel_err_f32=err32, ms=ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by, dense_bound_ms=dense_bound,
                bytes=byts, ops=ops, dense_ops=dense, parts_ms=parts)
@@ -726,7 +858,7 @@ def check_backward(key, ent, gen):
     dense_bound, _ = _bound_ms(byts, dense)
     n, c_in = args[2].shape
     row = dict(kernel=name, n=n, tile=args[4].shape[1], window=args[4].shape[2],
-               c_in=c_in, c_out=args[3].shape[2], calls=ent["calls"],
+               heads=args[0].shape[1], c_in=c_in, c_out=args[3].shape[2], calls=ent["calls"],
                max_abs_err=res[cd][0], rel_err=res[cd][1],
                rel_err_f32=res[torch.float32][1], ms=ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by, dense_bound_ms=dense_bound,
@@ -2064,11 +2196,8 @@ def halo_serve_phase(torch, np, state, kind):
         print(f"[halo] {mode}: levels {_halo_modes(sample)}; launches of #1/#2 by "
               f"kernel name {_nonzero(cnt['device'])}, expected {_nonzero(want)} "
               f"(parts x banded level-1 convs); wrappers {_nonzero(cnt['wrappers'])}")
-        assert cnt["wrappers"] == want, cnt  # eager: every launch through a wrapper
-        # every expected kernel shows by name, at most as often as launched (see
-        # halo_train_phase on the profiles of this phase's eager runs)
-        assert all(0 < cnt["device"][k] <= want[k] if want[k] else cnt["device"][k] == 0
-                   for k in AGGREGATES), cnt
+        # eager: every launch through a wrapper, and each one ran
+        assert cnt["wrappers"] == want and cnt["device"] == _aggregates(want), cnt
         if banded:
             launches = want
         upd = [torch.from_numpy(a).to("cuda") for a in (
@@ -2105,7 +2234,8 @@ def halo_serve_phase(torch, np, state, kind):
         torch.cuda.empty_cache()
     # banded against table: held to the model tolerances with the aggregates
     # in float32 compute (as phase 4 holds the banded patch against the
-    # table convs); the default's bf16 operands' distance is printed
+    # table convs); with the default's bf16 operands, the normals to
+    # HALO_BF16_NORMAL_TOL, a multiple of the JAX package's own distance
     with aggregates_in(torch.float32):
         res["banded32"] = pred.predict_mesh_halo(mesh, HALO_PARTS, True, devs)
     for mode in ("banded32", "banded"):
@@ -2114,9 +2244,10 @@ def halo_serve_phase(torch, np, state, kind):
         print(f"[halo] banded ({'float32' if mode == 'banded32' else 'bf16'} aggregate "
               f"operands) vs table: positions {e_pos:.3e} mean edge lengths, normals "
               f"{e_n:.3e}" + (f" (tol {POS_TOL_MEL}, {NORMAL_TOL})" if mode == "banded32"
-                               else " (printed: bf16 rounding, not bounded)"))
-        if mode == "banded32":
-            assert e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
+                               else f" (tol {POS_TOL_MEL}, {HALO_BF16_NORMAL_TOL}: "
+                               f"{HALO_WITNESS} x the JAX package's {JAX_HALO_BF16_NORMALS})"))
+        assert e_pos <= POS_TOL_MEL
+        assert e_n <= (NORMAL_TOL if mode == "banded32" else HALO_BF16_NORMAL_TOL)
     assert sum(e["calls"] for e in captured.values()) == sum(launches.values())
     return captured, launches
 
@@ -2228,9 +2359,7 @@ def halo_train_phase(torch, np, kind):
     torch.cuda.empty_cache()
 
     # the main path: fit, counted by the wrappers; the device's count by
-    # kernel name is read on one more step (a profile of this phase's eager
-    # steps, after the earlier phases' profiles, has lost a #1 record: each
-    # kernel must show, at most as often as its wrapper launched it)
+    # kernel name is read on one more step
     hist = []
     banded_cuda.reset_launches()
     tr.fit(on_epoch=lambda t, m, e: hist.append(m))
@@ -2249,8 +2378,7 @@ def halo_train_phase(torch, np, kind):
                       f"s/step {m['edges_per_s']:.4e} edges/s" for i, m in enumerate(hist))
           + f" (eager, {HALO_PARTS} parts on one card; card {kind})")
     assert fit_launches == want and cnt["wrappers"] == per_step, (fit_launches, cnt)
-    assert all(0 < cnt["device"][k] <= per_step[k] if per_step[k] else cnt["device"][k] == 0
-               for k in AGGREGATES), cnt
+    assert cnt["device"] == _aggregates(per_step), cnt
     assert all(np.isfinite(m["loss"]) for m in hist) and hist[-1]["loss"] < hist[0]["loss"]
 
     rep = accounting.halo_comm_report(s0.structure, step_ms_single_chip=single_ms)
@@ -2263,9 +2391,10 @@ def halo_train_phase(torch, np, kind):
 
 
 def sharded_phase(torch, np, train_ds, kind):
-    """Phase 17, [dp] / [gp]: Trainer(Config(dp=2)) and Config(gp=2) on
-    [cuda:0] * 2 over phase 7's patches: one step's gradient against the
-    single-device step of the same (COO) model, then Trainer.fit."""
+    """Phase 17, [dp] / [gp] / [dcn]: Trainer(Config(dp=2)), Config(gp=2)
+    and Config(dcn=2, dp=1) on [cuda:0] * 2 over phase 7's patches: one
+    step's gradient against the single-device step of the same (COO) model,
+    then Trainer.fit."""
     from geobignn_tpu_torch.config import Config
     from geobignn_tpu_torch.models.dual_gnn import DualGNN
     from geobignn_tpu_torch.ops import banded_cuda
@@ -2274,7 +2403,7 @@ def sharded_phase(torch, np, train_ds, kind):
     from geobignn_tpu_torch.train.trainer import Trainer
 
     dev = torch.device("cuda", 0)
-    for grid in (dict(dp=2), dict(gp=2)):
+    for grid in (dict(dp=2), dict(gp=2), dict(dcn=2, dp=1)):
         tag = next(iter(grid))
         cfg = Config(seed=0, max_epoch=1, augment=False, fc_precision="float32", **grid)
         tr = Trainer(cfg, train_ds, devices=[dev] * 2)
@@ -2297,8 +2426,10 @@ def sharded_phase(torch, np, train_ds, kind):
         hist = []
         banded_cuda.reset_launches()
         tr.fit(on_epoch=lambda t, m, e: hist.append(m))
-        print(f"[{tag}] {grid}: one step ({len(idx)} of phase 7's patches, {step_s:.3f} s "
-              f"wall, eager, 2 grid entries on cuda:0) against the single-device step of "
+        print(f"[{tag}] {grid}: one step ({len(idx)} of phase 7's patches, "
+              f"{step_s * 1e3:.1f} ms wall, eager, 2 grid entries on cuda:0"
+              + ("; one process: a multi-card or multi-process time is not measured"
+                 if tag == "dcn" else "") + ") against the single-device step of "
               f"the same model: worst tensor {worst:.3e} of its max|g| (tol "
               f"{F32_GRAD_TOL}); fit: loss {hist[0]['loss']:.6f}, "
               f"{hist[0]['samples_per_s']:.3f} samples/s, {hist[0]['edges_per_s']:.4e} "
@@ -2308,6 +2439,207 @@ def sharded_phase(torch, np, train_ds, kind):
         assert sum(banded_cuda.LAUNCHES.values()) == 0
         del tr, ref, batch
         torch.cuda.empty_cache()
+
+
+LEGACY_MODELS = ("FacetAttentionGNN", "FGCNet", "FeaStGNNPrePool", "GATGNN")
+
+
+def _legacy_expected(branch, model):
+    """Aggregate launches of one forward and backward of a legacy model on
+    `branch`: each FeaStConv on a level with a band launches the schedule
+    its widths pick (block-sparse where the level is), and a second banded
+    one where the level has a boundary sub-band; once each way.  The GCN and
+    GAT convs launch none."""
+    from geobignn_tpu_torch.models.dual_gnn import CONV_SCHEDULE, FeaStConv
+    from geobignn_tpu_torch.ops.banded_cuda import use_transform_first
+
+    want = dict.fromkeys(AGGREGATES, 0)
+    for name, lvl, _, _ in CONV_SCHEDULE:
+        conv, level = getattr(model, name, None), branch.levels[lvl]
+        if not isinstance(conv, FeaStConv) or level.band is None:
+            continue
+        kind = FWD[use_transform_first(*conv.w.shape[1:])]
+        if level.blk_idx is not None:
+            want["bs_" + kind] += 1
+        else:
+            want[kind] += 1 + (level.jnodes is not None)
+    want.update({k + "_bwd": v for k, v in want.items() if not k.endswith("_bwd")})
+    return want
+
+
+def legacy_phase(torch, np, train_ds, seeds, kind):
+    """Phase 18, [legacy]: the four legacy models (models/legacy.py) with
+    seeded weights on the facet branch of phase 7's patch 0, on the input
+    slices of tests/test_legacy_models.py.  Per model: the forward and
+    backward of the summed squared error, counted (#1-#6 by the wrappers and
+    by kernel name, against _legacy_expected) and recorded; the forward on
+    the card against device="cpu" (bf16 aggregate operands: NORMAL_TOL); the
+    float32 gradients against the CPU's, the CPU held to the card's
+    branches (F32_GRAD_TOL, or, for a tensor whose float32 sum cancels
+    further than that from the float64 step, three times the CPU's own
+    distance, as tests/test_torch_legacy.py); forward and forward+backward
+    times.  Returns the counted launches and the recorded calls."""
+    from geobignn_tpu_torch.models import legacy
+    from geobignn_tpu_torch.testing import (TIE_TOL, aggregates_in, float64_sample,
+                                            grad_agreement, same_branches)
+    from geobignn_tpu_torch.train import profiling
+
+    tag = f"legacy{seeds}"
+    raw = train_ds.get(0).f  # numpy: .to() moves numpy arrays only
+    b_cpu, b_gpu = raw.to("cpu"), raw.to("cuda")
+    n = int(b_cpu.levels[0].node_mask.sum())
+    modes = ["table" if lv.band is None else "block-sparse" if lv.blk_idx is not None
+             else f"banded tile {lv.band.shape[1]}" + (" + sub-band" if lv.jnodes is not None
+                                                        else "") for lv in b_cpu.levels]
+    print(f"[{tag}] facet branch of patch 0: {n} faces, levels {modes}")
+    launched = dict.fromkeys(AGGREGATES, 0)
+    recorded = []
+
+    def sse(mdl, b, sl, dt=None):
+        mdl.zero_grad(set_to_none=True)
+        with aggregates_in(dt) if dt else contextlib.nullcontext():
+            loss = ((mdl(b, b.x[:, sl]) - b.y) ** 2).sum()
+            loss.backward()
+        return float(loss.detach())
+
+    for name in LEGACY_MODELS:
+        cls = getattr(legacy, name)
+        sl = slice(3, 6) if name == "FacetAttentionGNN" else slice(0, 6)
+        model = cls(device="cuda", seed=7)
+        state = model.state_dict()
+        cpu = cls(device="cpu")
+        cpu.load_state_dict(state)
+        want = _legacy_expected(b_gpu, model)
+        fwd_rec, bwd_rec = {}, {}  # per model: the recording keys leave out the heads
+        with _recording(fwd_rec), _recording(bwd_rec, backward=True), _counted() as cnt:
+            sse(model, b_gpu, sl)
+        assert _aggregates(cnt["wrappers"]) == want and cnt["device"] == want, (name, cnt)
+        launched = {k: launched[k] + want[k] for k in AGGREGATES}
+        recorded.append((fwd_rec, bwd_rec))
+
+        with torch.no_grad():
+            out_g = model(b_gpu, b_gpu.x[:, sl]).cpu()
+            t0 = time.perf_counter()
+            out_c = cpu(b_cpu, b_cpu.x[:, sl])
+            cpu_s = time.perf_counter() - t0
+        e_n = float((out_g[:n] - out_c[:n]).abs().max())
+        assert bool(torch.isfinite(out_g).all()) and e_n <= NORMAL_TOL, (name, e_n)
+
+        picks: list = []
+        with same_branches(picks, replay=False):
+            l_g = sse(model, b_gpu, sl, torch.float32)
+        with same_branches(picks, replay=True) as flips:
+            l_c = sse(cpu, b_cpu, sl, torch.float32)
+        stats = {k: v[0] for k, v in grad_agreement(model, cpu).items()}
+        over, own = {k: v for k, v in stats.items() if v > F32_GRAD_TOL}, {}
+        if over:  # a sum that cancels: the CPU's own float32 distance
+            c64 = cls(device="cpu").to(torch.float64)
+            c64.load_state_dict(state)
+            with same_branches(picks, replay=True):
+                sse(c64, float64_sample(b_cpu), sl, torch.float64)
+            own = {k: v[0] for k, v in grad_agreement(cpu, c64).items() if k in over}
+        worst = max(stats, key=stats.get)
+        assert flips[0] <= LEGACY_MAX_HELD and abs(l_g - l_c) <= 1e-5 * abs(l_c), \
+            (name, flips, l_g, l_c)
+        assert all(v <= 3 * own[k] for k, v in over.items()), (name, over, own)
+
+        with torch.no_grad():
+            fwd = profiling.time_steps(lambda: model(b_gpu, b_gpu.x[:, sl]), steps=20)
+        both = profiling.time_steps(lambda: sse(model, b_gpu, sl), steps=20)
+        print(f"[{tag}] {name}" + (f" ({model.heads} heads)" if hasattr(model, "heads") else "")
+              + f": launches by kernel name {_nonzero(cnt['device'])}, wrappers "
+              f"{_nonzero(_aggregates(cnt['wrappers']))}, expected {_nonzero(want)}; "
+              f"normals GPU vs device=\"cpu\" {e_n:.3e} (tol {NORMAL_TOL}; CPU forward "
+              f"{cpu_s:.2f} s); float32 gradients GPU vs CPU: loss {l_g:.6f} vs {l_c:.6f}, "
+              f"worst tensor {worst} {stats[worst]:.3e} of its max|g| (tol {F32_GRAD_TOL}"
+              + (", over it: " + ", ".join(f"{k} {v:.3e} (the CPU's own float32 "
+                                           f"{own[k]:.3e} from float64, tol 3x)"
+                                           for k, v in over.items()) if over else "")
+              + f"); branches held {flips[0]} (at most {LEGACY_MAX_HELD}; widest "
+              f"{flips[1]:.3e}, near-ties within {TIE_TOL}); forward {_spread(fwd)}, forward+backward {_spread(both)} "
+              f"(CUDA events); card {kind}")
+        del model, cpu
+        torch.cuda.empty_cache()
+    return launched, recorded
+
+
+def icp_phase(torch, np, kind):
+    """Phase 19, [icp]: utils.icp_align on the card against device="cpu" on
+    the icosphere(5) vertex set (10,242 points) and its copy rotated by 0.3
+    degrees about a skew axis and shifted, each point moving less than half
+    the spacing, so that every nearest point is unique and its own image:
+    R and t within 1e-5, R within 1e-4 of the true rotation; time."""
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.train import profiling
+    from geobignn_tpu_torch.utils import icp_align
+
+    src = synth.icosphere(5).points.astype(np.float64)
+    axis = np.array([0.3, -0.5, 0.81]) / np.linalg.norm([0.3, -0.5, 0.81])
+    ang = np.radians(0.3)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    rot = np.eye(3) + np.sin(ang) * k + (1 - np.cos(ang)) * k @ k
+    dst = src @ rot.T + np.array([0.002, -0.0015, 0.0025])
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (src, dst)]
+    gpu = [a.to("cuda") for a in args]
+    _, r_g, t_g = icp_align(*gpu)
+    t0 = time.perf_counter()
+    _, r_c, t_c = icp_align(*args)
+    cpu_s = time.perf_counter() - t0
+    e_r, e_t = (float((a.cpu() - b).abs().max()) for a, b in ((r_g, r_c), (t_g, t_c)))
+    e_true = float(np.abs(r_g.cpu().numpy() - rot).max())
+    t = profiling.time_steps(lambda: icp_align(*gpu), steps=20)
+    print(f"[icp] icp_align, 10 iterations, {src.shape[0]} points: GPU vs device=\"cpu\" "
+          f"R {e_r:.3e}, t {e_t:.3e} (tol 1e-5); R vs the true rotation {e_true:.3e} "
+          f"(tol 1e-4); {_spread(t)} (CUDA events; CPU {cpu_s:.3f} s); card {kind}")
+    assert e_r <= 1e-5 and e_t <= 1e-5 and e_true <= 1e-4
+
+
+def viz_phase(torch, np, mesh, vp, kind):
+    """Phase 20, [viz]: viz.hausdorff_heatmap of phase 3's served result
+    (its positions on the noisy mesh's faces) against the clean
+    icosphere(5), on the card (#7, counted) and with device="cpu": the
+    distances it colors by within #7's tolerance of the CPU's (squared),
+    both .off files written.  Returns #7's launches."""
+    from geobignn_tpu_torch import meshio, viz
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.models import losses
+    from geobignn_tpu_torch.ops import banded_cuda
+
+    result, clean = meshio.TriMesh(vp, mesh.fv_indices), synth.icosphere(5)
+    seen, nearest = [], losses.nearest_distance
+
+    def keep(*args, **kw):  # the distances the heatmap colors by
+        seen.append(nearest(*args, **kw))
+        return seen[-1]
+
+    losses.nearest_distance = keep
+    tmp = tempfile.mkdtemp(prefix="viz_")
+    try:
+        banded_cuda.reset_launches()
+        t0 = time.perf_counter()
+        path = viz.hausdorff_heatmap(os.path.join(tmp, "gpu.off"), result, clean)
+        gpu_s = time.perf_counter() - t0
+        launches = banded_cuda.LAUNCHES["nearest"]
+        path_c = viz.hausdorff_heatmap(os.path.join(tmp, "cpu.off"), result, clean,
+                                       device="cpu")
+        lines = [open(p).read().splitlines() for p in (path, path_c)]
+    finally:
+        losses.nearest_distance = nearest
+        shutil.rmtree(tmp, ignore_errors=True)
+    d_g, d_c = (d.double().cpu() for d in seen)
+    scale = float((torch.from_numpy(result.points).double() ** 2).sum(1).max()
+                  + (torch.from_numpy(clean.points).double() ** 2).sum(1).max())
+    err = float((d_g ** 2 - d_c ** 2).abs().max()) / scale
+    same = sum(a == b for a, b in zip(*lines)) / len(lines[1])
+    print(f"[viz] hausdorff_heatmap of the served seed-0 result ({result.n_vertices} "
+          f"vertices) against icosphere(5): #7 launched {launches}; squared distances "
+          f"GPU vs device=\"cpu\" {err:.3e} of max(|a|^2 + |b|^2) (tol {NEAREST_TOL}); "
+          f"largest distance {float(d_g.max()):.6f}; .off written ({len(lines[0])} lines, "
+          f"{same:.6f} of them equal to the CPU's); {gpu_s:.3f} s wall; card {kind}")
+    assert launches == 1 and seen[0].is_cuda and err <= NEAREST_TOL
+    assert lines[0][0] == "COFF" and len(lines[0]) == len(lines[1]) == 2 + result.n_vertices \
+        + result.n_faces
+    return launches
 
 
 def main() -> int:
@@ -2501,6 +2833,13 @@ def main() -> int:
             more.append(fusion_phase(torch, np, train["train_ds"], kind))
             more.append(dynamic_phase(torch, np, train["train_ds"],
                                       train["graph"]["graphed"], kind))
+        # 18: the legacy models on this training set's patch 0
+        legacy_launches, legacy_rec = legacy_phase(torch, np, train["train_ds"], seeds, kind)
+        more.append(legacy_launches)
+        for fwd_rec, bwd_rec in legacy_rec:
+            rows += [check_forward(key, fwd_rec[key], reps=5) for key in sorted(fwd_rec)]
+            bwd_rows += [check_backward(key, ent, gen) for key, ent in sorted(bwd_rec.items())]
+        del legacy_rec
         mine = [check_backward(key, ent, gen)
                 for key, ent in sorted(train["captured"].items())
                 if key[0].startswith("bs_") == bool(prefix)]
@@ -2578,6 +2917,23 @@ def main() -> int:
         torch.cuda.empty_cache()
     assert nn_rows[0]["n"] == nn_rows[0]["m"] == 10242 and run["launches"] == 1
 
+    _lap(t_start, "phase 9")
+    # 19-20. icp_align; the Hausdorff heatmap of the served result through #7 --------
+    icp_phase(torch, np, kind)
+    viz_launches = viz_phase(torch, np, mesh, vp_g, kind)
+    _lap(t_start, "phases 19-20")
+    recs = PROFILE_WINDOWS
+    print(f"[profile] {len(recs)} counted runs: launch calls without a kernel record "
+          f"{sum(r['unrecorded'] for r in recs)}, of them in the primers "
+          f"{sum(r['unrecorded_in_primer'] for r in recs)}; the least time from a launch "
+          f"call to its kernel's start "
+          f"{min(r['min_launch_to_start_us'] for r in recs if r['kernels']):.1f} us; raw "
+          f"aggregate records equal to the grouped ones in every run "
+          f"{all(r['raw_equals_grouped'] for r in recs)}; per run (in the primer, elsewhere, "
+          f"least launch-to-start us) "
+          + json.dumps([[r["unrecorded_in_primer"], r["unrecorded"] - r["unrecorded_in_primer"],
+                         r["min_launch_to_start_us"]] for r in recs]))
+
     kernels = []
     for name in AGGREGATES:
         if name.endswith("_bwd"):
@@ -2592,7 +2948,8 @@ def main() -> int:
     kernels.append({
         "name": "nearest_distance", "route": "cuda",
         "source": "geobignn_tpu_torch/csrc/nearest.cu",
-        "replaces": "geobignn_tpu/ops/pallas_nn.py:42", "launches": run["launches"],
+        "replaces": "geobignn_tpu/ops/pallas_nn.py:42",
+        "launches": run["launches"] + viz_launches,
         **{k: path_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}})
     assert len(kernels) == len(KERNELS) == 9

@@ -31,11 +31,11 @@ def masked_mean(per_node: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def loss_v(vp, v, mask, dis: str = "L1", apply_icp: bool = False):
-    if apply_icp:
-        raise NotImplementedError(
-            "loss_v(apply_icp=True) needs utils.icp_align, which is not ported "
-            "to geobignn_tpu_torch yet (ROADMAP: modules to port, the rest of "
-            "the package)")
+    if apply_icp:  # rigid prealignment before the distance (reference
+        # network.py:364-367, pytorch3d ICP)
+        from geobignn_tpu_torch.utils import icp_align
+
+        vp, _, _ = icp_align(vp, v, mask, mask)
     if dis == "L1":
         per = (vp - v).abs().sum(dim=1)
     elif dis == "L2":

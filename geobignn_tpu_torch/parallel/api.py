@@ -19,6 +19,15 @@ Counterpart of geobignn_tpu/parallel/api.py.  The JAX step is one
 
 Several grid entries may name one device: the CPU tests run every replica
 on the CPU, one card runs them all on cuda:0.
+
+dcn (the JAX package's cross-host data-parallel axis) is a leading axis of
+replicas over the (dp, gp) grid, laid out (dcn, dp, gp) as JAX lays out its
+devices: the batch is split over dcn * dp replicas, dcn-major.  In one
+process `make_mesh(..., dcn=k)` holds the whole (dcn, dp, gp) grid.  Across
+processes (`distributed_init`, one process per dcn entry) each process
+holds its own (dp, gp) grid and runs its replicas, and the summed
+gradients and metrics are added over the process group in one all-reduce
+per step — JAX's one pmean across DCN.
 """
 
 from __future__ import annotations
@@ -27,30 +36,61 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from geobignn_tpu_torch.data import augment as aug
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.structs import DualSample, _Struct
-from geobignn_tpu_torch.utils import not_ported
-
-MULTI_HOST = "modules to port, item 10, multi-host dcn through torch.distributed"
+from geobignn_tpu_torch.utils import resolve_device
 
 
-def make_mesh(dp: int, gp: int, devices=None, dcn: int = 1) -> list[list[torch.device]]:
-    """The (dp, gp) grid of devices, row-major over `devices`.  devices=None
-    takes the first dp*gp visible cards and raises with fewer; an explicit
-    list may name one device several times.  dcn > 1 (several hosts) is not
-    ported."""
-    if dcn > 1:
-        not_ported("multi-host training (dcn > 1)", MULTI_HOST)
-    need = dp * gp
+def _group_size() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def distributed_init(coordinator: str | None = None, num_processes: int | None = None,
+                     process_id: int | None = None, device=None) -> None:
+    """Join the process group of a multi-process dcn run: one process per
+    dcn entry, `coordinator` the group's rendezvous (an init_method URL,
+    "tcp://host:port" or "file:///path"), `process_id` this process's
+    rank.  gloo on the CPU, NCCL on cards (`device`, CUDA unless "cpu").
+    A no-op for one process, or when the group is up already."""
+    if not num_processes or num_processes <= 1 or _group_size() > 1:
+        return
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=coordinator, world_size=num_processes,
+                            rank=process_id)
+
+
+def make_mesh(dp: int, gp: int, devices=None, dcn: int = 1) -> list:
+    """The device grid, row-major over `devices`: (dp, gp) for dcn == 1;
+    for dcn > 1 in one process (dcn, dp, gp), the JAX layout; in a process
+    group of dcn processes (distributed_init), this process's own (dp, gp)
+    grid.  devices=None takes the visible cards (in a group whose host sees
+    them all, this process's block of them) and raises with fewer; an
+    explicit list may name one device several times."""
+    procs = _group_size()
+    if procs > 1 and procs != dcn:
+        raise ValueError(f"dcn={dcn} in a process group of {procs} processes")
+    local = dcn // procs  # the dcn entries this process holds
+    need = local * dp * gp
     if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        n = torch.cuda.device_count()
+        first = dist.get_rank() * need if procs > 1 and n >= procs * need else 0
+        devices = [torch.device("cuda", i) for i in range(first, n)]
     devices = [torch.device(d) for d in devices]
     if len(devices) < need:
         raise ValueError(f"need {need} devices, have {len(devices)}")
-    return [devices[r * gp : (r + 1) * gp] for r in range(dp)]
+    rows = [devices[r * gp : (r + 1) * gp] for r in range(local * dp)]
+    if dcn == 1 or procs > 1:
+        return rows
+    return [rows[k * dp : (k + 1) * dp] for k in range(dcn)]
+
+
+def replica_rows(mesh: list) -> list[list[torch.device]]:
+    """The grid's replicas, each its row of gp devices, dcn-major."""
+    return [row for grid in mesh for row in grid] if isinstance(mesh[0][0], list) else mesh
 
 
 def _map_leaves(fn, values: list):
@@ -109,31 +149,38 @@ def _rotation_seed(seed: int, rank: int, i: int) -> int:
 
 def make_sharded_train_step(model, optimizer, mesh: list, loss_cfg: dict | None = None,
                             augment: bool = False, gp_shard: bool = True):
-    """The step over the (dp, gp) grid: step(batch, seed) -> metrics.
+    """The step over the grid: step(batch, seed) -> metrics.
 
     `batch` is a stacked batch (stack_samples) of B samples, B divisible by
-    dp; replica r runs samples [r*B/dp, (r+1)*B/dp) on mesh[r].  The
-    gradients of all B samples are summed into the model's parameters and
-    divided by B, then `optimizer` takes one step.  The metrics are the means
-    over the batch, as tensors on the parameters' device.  With `augment`
-    each sample gets its own rotation, drawn from a torch.Generator seeded
-    by (seed, replica, index).  gp_shard=False keeps each replica's edges
+    the replica count R (dcn * dp); replica r (dcn-major over the grid's
+    rows) runs samples [r*B/R, (r+1)*B/R) on its row.  The gradients of all
+    B samples are summed into the model's parameters and divided by B, then
+    `optimizer` takes one step.  In a process group each process runs its
+    own replicas (the group's rank-th block of the batch) and the sums are
+    added over the group in one all-reduce.  The metrics are the means over
+    the batch, as tensors on the parameters' device.  With `augment` each
+    sample gets its own rotation, drawn from a torch.Generator seeded by
+    (seed, replica, index).  gp_shard=False keeps each replica's edges
     whole (dynamic pooling, which is dp-only)."""
     from geobignn_tpu_torch.pool.dynamic import fill_missing_grads
 
     cfg = loss_cfg or {}
-    dp = len(mesh)
+    rows = replica_rows(mesh)
+    procs = _group_size()
+    first = dist.get_rank() * len(rows) if procs > 1 else 0
 
     def step(batch: DualSample, seed: int = 0) -> dict:
         b = batch_size_of(batch)
-        if b % dp:
-            raise ValueError(f"batch {b} is not divisible by dp={dp}")
-        b_local = b // dp
+        n_rep = len(rows) * procs
+        if b % n_rep:
+            raise ValueError(f"batch {b} is not divisible by the {n_rep} replicas")
+        b_local = b // n_rep
         named = dict(model.named_parameters())
         home = next(iter(named.values())).device
         optimizer.zero_grad(set_to_none=True)
         sums: dict = {}
-        for rank, row in enumerate(mesh):
+        for r, row in enumerate(rows):
+            rank = first + r
             dev = row[0]
             local = {k: v.to(dev) for k, v in named.items()}
             for i in range(b_local):
@@ -147,9 +194,17 @@ def make_sharded_train_step(model, optimizer, mesh: list, loss_cfg: dict | None 
                 for k, v in m.items():
                     sums[k] = sums.get(k, 0) + v.detach().to(home)
         fill_missing_grads(model)
+        keys = sorted(sums)
+        if procs > 1:  # one all-reduce of every gradient and metric sum
+            grads = [prm.grad for prm in named.values()]
+            flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack([sums[k] for k in keys])])
+            dist.all_reduce(flat)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads] + [len(keys)])):
+                g.copy_(part.view_as(g))
+            sums = dict(zip(keys, flat[-len(keys):]))
         for prm in named.values():
             prm.grad.div_(float(b))
         optimizer.step()
-        return {k: v / b for k, v in sums.items()}
+        return {k: sums[k] / b for k in keys}
 
     return step

@@ -8,8 +8,9 @@ with dots ("gnn_v.l_conv1.u", "fc_v1.kernel") and keeps the same layouts,
 so moving weights is a renaming.
 
 `init_` follows flax's initialisers in distribution (not in bits — the two
-frameworks' generators differ): Glorot-uniform conv `w` and dynamic pooling
-`att_l` / `att_r`, normal x 0.1 `u`, zero `c` and `b`, LeCun-normal
+frameworks' generators differ): Glorot-uniform conv `w` (FeaStConv, GCN,
+GAT) and dynamic pooling `att_l` / `att_r`, normal x 0.1 `u` and GAT's
+`a_l` / `a_r`, zero `c` and `b`, LeCun-normal
 (truncated) Dense kernels (the heads, the fusion layer, pooling `lin`),
 zero Dense biases.
 """
@@ -94,11 +95,13 @@ def init_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
         shape = tuple(prm.shape)
         if leaf in ("c", "b", "bias"):
             val = torch.zeros(shape)
-        elif leaf == "u":
+        elif leaf in ("u", "a_l", "a_r"):
             val = torch.randn(shape, generator=gen) * 0.1
-        elif leaf == "w":  # glorot_uniform over (H, C_in, C_out): fan = C*H
-            heads, c_in, c_out = shape
-            limit = math.sqrt(6.0 / (heads * c_in + heads * c_out))
+        elif leaf == "w":  # glorot_uniform, flax's fans: the last two axes
+            # times the rest (FeaStConv (H, C_in, C_out): C*H; GAT (C_in, H,
+            # C_out): H*C_in and C_out*C_in; GCN (C_in, C_out))
+            rf = math.prod(shape[:-2])
+            limit = math.sqrt(6.0 / (rf * shape[-2] + rf * shape[-1]))
             val = (torch.rand(shape, generator=gen) * 2 - 1) * limit
         elif leaf in ("att_l", "att_r"):  # glorot_uniform over (1, C)
             limit = math.sqrt(6.0 / (shape[0] + shape[1]))

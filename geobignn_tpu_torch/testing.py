@@ -162,8 +162,10 @@ TIE_TOL = 1e-5  # of a row's scale: how far apart rounding may put two branches
 
 @contextlib.contextmanager
 def same_branches(choices: list, replay: bool):
-    """While open, the model's two piecewise functions — the max-pooling
-    (`table.gather_pool_max`) and the LeakyReLU (`dual_gnn._act`) — either
+    """While open, the models' piecewise functions — the max-pooling
+    (`table.gather_pool_max`) and the activations (DualGNN's LeakyReLU
+    `dual_gnn._act`, the legacy models' `legacy._leaky` and `legacy._relu`,
+    ReLU a LeakyReLU of slope 0) — either
     record, call by call, the branch they take (appended to `choices`: the
     member each row and channel picks, the sign of each input), or, with
     replay, take the recorded branch wherever their own differs.
@@ -184,10 +186,13 @@ def same_branches(choices: list, replay: bool):
     by a wider margin is a different result, not rounding.  Yields a
     two-item list, filled once the run is done: the values that flipped,
     and the largest of those distances over its row's scale."""
-    from geobignn_tpu_torch.models import dual_gnn
+    from geobignn_tpu_torch.models import dual_gnn, legacy
     from geobignn_tpu_torch.ops import table
 
-    pool, act = table.gather_pool_max, dual_gnn._act
+    pool = table.gather_pool_max
+    acts = [(dual_gnn, "_act", dual_gnn.LEAKY_SLOPE), (legacy, "_leaky", legacy.LEGACY_SLOPE),
+            (legacy, "_relu", 0.0)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in acts]
     calls = iter(list(choices))
     flips = [0, 0.0]
 
@@ -220,16 +225,20 @@ def same_branches(choices: list, replay: bool):
         return held(pick, out, lambda want: masked.gather(
             1, want.clamp(min=0)[:, None]).squeeze(1), scale)
 
-    def leaky(v):
-        return held(v > 0, act(v), lambda want: torch.where(
-            want, v, v * dual_gnn.LEAKY_SLOPE), v.abs().amax(dim=-1, keepdim=True))
+    def leaky(act, slope):
+        return lambda v: held(v > 0, act(v), lambda want: torch.where(
+            want, v, v * slope), v.abs().amax(dim=-1, keepdim=True))
 
-    table.gather_pool_max, dual_gnn._act = max_pool, leaky
+    table.gather_pool_max = max_pool
+    for (mod, name, slope), (_, _, act) in zip(acts, saved):
+        setattr(mod, name, leaky(act, slope))
     try:
         with without_remat():
             yield flips
     finally:
-        table.gather_pool_max, dual_gnn._act = pool, act
+        table.gather_pool_max = pool
+        for mod, name, act in saved:
+            setattr(mod, name, act)
 
 
 def ranked_apart(edge_index: torch.Tensor, w_ref: torch.Tensor, w: torch.Tensor):

@@ -37,14 +37,14 @@ reach get zero gradients, as jax.grad gives them), and streaming
 thread `prefetch_depth` steps ahead (data/prefetch.py), into one SizePlan
 per size bucket with `buckets_growth > 1` (one CUDA graph per bucket plan).
 
-Several devices: with `dp * gp > 1` each epoch runs the step of
-parallel/api.py over a (dp, gp) grid of devices (`devices`, or every entry
-on the CPU with device="cpu", else the first dp*gp visible cards) on
-global batches of dp * batch_size samples, a short last batch filled by
-wrapping around the epoch's order, as the JAX trainer does; the step is
-eager.  `halo_parts > 1` routes `train()` to train/halo_trainer.py.
-Several hosts (`dcn > 1`) are refused with NotImplementedError, naming
-their ROADMAP item.
+Several devices: with `dcn * dp * gp > 1` each epoch runs the step of
+parallel/api.py over a (dcn, dp, gp) grid of devices (`devices`, or every
+entry on the CPU with device="cpu", else the first visible cards) on
+global batches of dcn * dp * batch_size samples, a short last batch filled
+by wrapping around the epoch's order, as the JAX trainer does; the step is
+eager.  In a process group of dcn processes (api.distributed_init) each
+process holds its (dp, gp) grid and the step adds the gradients over the
+group.  `halo_parts > 1` routes `train()` to train/halo_trainer.py.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic, fill_missing_grads
 from geobignn_tpu_torch.train import checkpoint as ckpt
 from geobignn_tpu_torch.train import optim
 from geobignn_tpu_torch.train.logging import MetricLogger, Tee
-from geobignn_tpu_torch.utils import not_ported, resolve_device
+from geobignn_tpu_torch.utils import resolve_device
 
 METRIC_KEYS = ("loss", "loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f")
 
@@ -105,16 +105,14 @@ class Trainer:
     def __init__(self, cfg: Config, train_ds, eval_ds=None, run_dir: str | None = None,
                  device=None, devices=None):
         cfg.validate()
-        if cfg.dcn > 1:
-            not_ported("multi-host training (dcn > 1)", api.MULTI_HOST)
         self.cfg = cfg
-        self.n_chips = cfg.dp * cfg.gp
+        self.n_chips = cfg.dcn * cfg.dp * cfg.gp
         self._mesh = None
         if self.n_chips > 1:
             if devices is None and resolve_device(device).type == "cpu":
                 devices = [torch.device("cpu")] * self.n_chips
-            self._mesh = api.make_mesh(cfg.dp, cfg.gp, devices)
-            device = self._mesh[0][0]
+            self._mesh = api.make_mesh(cfg.dp, cfg.gp, devices, cfg.dcn)
+            device = api.replica_rows(self._mesh)[0][0]
         self.device = resolve_device(device)
         self.train_ds = train_ds
         self.eval_ds = eval_ds
@@ -158,7 +156,7 @@ class Trainer:
         self._sharded_step = None
         if self._mesh is not None:
             dynamic = isinstance(self.model, DualGNNDynamic)
-            self._global_batch = cfg.dp * cfg.batch_size
+            self._global_batch = cfg.dcn * cfg.dp * cfg.batch_size
             self._sharded_step = api.make_sharded_train_step(
                 self.model, self.optimizer, self._mesh, cfg.loss_cfg(),
                 augment=cfg.augment, gp_shard=not dynamic)
@@ -252,8 +250,9 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
 
     def _run_epoch_sharded(self, rng: np.random.Generator, logger=None):
-        """One epoch on the (dp, gp) grid: global batches of dp * batch_size
-        samples; the short last one is filled by wrapping around the order."""
+        """One epoch on the (dcn, dp, gp) grid: global batches of dcn * dp *
+        batch_size samples; the short last one is filled by wrapping around
+        the order."""
         order = rng.permutation(len(self.train_ds)).tolist()
         b = self._global_batch
         self.model.train()

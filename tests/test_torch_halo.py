@@ -174,7 +174,8 @@ def test_comm_report_bytes_match_jax():
 
 def test_make_mesh_grid():
     """make_mesh: a (dp, gp) grid, row-major; a device may repeat; fewer
-    devices than dp * gp raise; dcn > 1 names its ROADMAP item."""
+    devices than dcn * dp * gp raise; dcn > 1 adds a leading grid axis
+    (tests/test_torch_dcn.py holds its layout against JAX's)."""
     grid = api.make_mesh(2, 2, ["cpu"] * 4)
     assert [[d.type for d in row] for row in grid] == [["cpu"] * 2] * 2
     with pytest.raises(ValueError, match="need 4 devices, have 3"):
@@ -182,8 +183,9 @@ def test_make_mesh_grid():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="need 2 devices, have 0"):
             api.make_mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="item 10, multi-host dcn"):
-        api.make_mesh(1, 1, dcn=2)
+    assert api.make_mesh(1, 1, ["cpu"] * 2, dcn=2) == [[[torch.device("cpu")]]] * 2
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        api.make_mesh(1, 1, ["cpu"], dcn=2)
 
 
 # --------------------------------------------------------------------------

@@ -163,3 +163,51 @@ def test_halo_denoise_banded_matches_table_mode():
     np.testing.assert_allclose(v_b, v_t, atol=2e-2)
     np.testing.assert_allclose(n_b, n_t, atol=5e-2)
     assert v_b.shape == (m_n.n_vertices, 3) and np.isfinite(v_b).all()
+
+
+WITNESS_MULTIPLE = 1.25  # of JAX's own bf16-vs-table normal distance
+
+
+def _bf16_distances(sub: int) -> dict:
+    """Banded (bf16 aggregate operands) against table-mode halo serving of
+    add_noise(icosphere(sub), 0.2, seed=0) on 4 parts, in both packages,
+    the same seeded weights: the largest normal distance of each package's
+    two runs, and its positions' in mean edge lengths."""
+    m_n = jsynth.add_noise(jsynth.icosphere(sub), 0.2, seed=0)
+    pred = Predictor(Config(seed=0), DualGNN(device="cpu", seed=0).state_dict(), device="cpu")
+    jpred = JPredictor(JConfig(seed=0), pm.to_jax_params(pred.model.state_dict()))
+    mel = np.linalg.norm(m_n.points[m_n.ev_indices[:, 0]] - m_n.points[m_n.ev_indices[:, 1]],
+                         axis=1).mean()
+    out = {"faces": m_n.n_faces}
+    for tag, p in (("jax", jpred), ("port", pred)):
+        (vb, nb), (vt, nt) = (p.predict_mesh_halo(m_n, n_parts=4, banded=b) for b in (True, False))
+        out[tag] = {"normals": float(np.abs(nb - nt).max()),
+                    "positions_mel": float(np.abs(vb - vt).max() / mel)}
+    return out
+
+
+def test_halo_banded_bf16_distance_witness():
+    """The witness for the bf16 aggregates' distance in halo serving: the
+    port's banded-vs-table normal distance on icosphere(4) (5,120 faces)
+    within WITNESS_MULTIPLE (1.25) of the JAX package's own on the same mesh
+    and weights (its Pallas kernel in interpret mode), and both runs'
+    positions within 1e-3 mean edge lengths.  The two packages round the
+    aggregates' operands to bf16 at different points, so the distances are
+    of one size, not equal (icosphere(3): 2.8e-2 port, 3.8e-2 JAX; (4):
+    4.0e-2, 4.4e-2; (5): 5.3e-2, 6.2e-2 — `python
+    tests/test_torch_halo_model.py 5`); chip_smoke.py's [halo] bounds the
+    card's distance on the icosphere(5) mesh at this multiple of JAX's
+    there."""
+    d = _bf16_distances(4)
+    assert d["port"]["normals"] <= WITNESS_MULTIPLE * d["jax"]["normals"], d
+    assert max(d["port"]["positions_mel"], d["jax"]["positions_mel"]) <= 1e-3, d
+
+
+if __name__ == "__main__":  # python tests/test_torch_halo_model.py <subdivisions>
+    import json
+    import sys
+
+    import conftest  # noqa: F401  (the JAX CPU settings of the test suite)
+
+    testing.match_reference_native(jnative)
+    print(json.dumps(_bf16_distances(int(sys.argv[1]))))

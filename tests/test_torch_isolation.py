@@ -22,14 +22,16 @@ need = {pkg.__name__ + "." + m for m in (
     "train.tb_writer", "train.trainer", "ops.banded_cuda", "ops.blocksparse",
     "ops.segment", "ops.feastconv", "train.checkpoint", "ops.nn_cuda",
     "infer.evaluate", "infer.predict", "data.dataset", "cli", "__main__",
-    "ops.coalesce", "ops.matching", "pool.dynamic", "models.fusion", "data.prefetch")}
+    "ops.coalesce", "ops.matching", "pool.dynamic", "models.fusion", "data.prefetch",
+    "utils", "ops.gcn", "ops.gat", "models.legacy", "viz", "viz3d", "infer.gt_transfer",
+    "parallel.api")}
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
                                     "geobignn_tpu"))
 print(len(names), bad, sorted(need - set(names)))
-sys.exit(1 if bad or need - set(names) or len(names) < 38 else 0)
+sys.exit(1 if bad or need - set(names) or len(names) < 50 else 0)
 """
 
 
@@ -84,9 +86,9 @@ def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
 
 def test_no_level_structure_raises_not_ported(tmp_path):
     """FeaStConv dispatches every level structure the host builders make,
-    and the fusion layer constructs; dp, gp and halo training route to
-    their paths; what is still missing (several hosts, dcn > 1) names its
-    ROADMAP item, 10."""
+    and the fusion layer constructs; dp, gp, dcn and halo training route to
+    their paths: nothing of the JAX package is refused any more (the port
+    has no `not_ported` left)."""
     import inspect
 
     from geobignn_tpu_torch.config import Config
@@ -103,11 +105,13 @@ def test_no_level_structure_raises_not_ported(tmp_path):
 
     ds = InMemoryDataset([(synth.icosphere(1), synth.icosphere(1))],
                          BuildConfig(granularity=32, reorder=True))
-    for kw in (dict(dp=2), dict(gp=2)):
+    for kw in (dict(dp=2), dict(gp=2), dict(dcn=2)):
         tr = Trainer(Config(granularity=32, **kw), ds, device="cpu")
         assert tr._sharded_step is not None and tr.n_chips == 2
-    with pytest.raises(NotImplementedError, match=r"multi-host.*ROADMAP.*item 10"):
-        Trainer(Config(granularity=32, dcn=2), ds, device="cpu")
+    assert tr._global_batch == 2 and len(tr._mesh) == 2  # dcn: a (2, 1, 1) grid
+    from geobignn_tpu_torch import utils
+
+    assert not hasattr(utils, "not_ported")
     # halo training routes to train/halo_trainer.py: its dataset lookup runs
     with pytest.raises(FileNotFoundError):
         train(Config(halo_parts=2, dataset_dir=str(tmp_path / "none"),

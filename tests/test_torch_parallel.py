@@ -9,9 +9,20 @@ runs every grid entry on the CPU.  The step comparison reads the mean
 gradient the step applies: the JAX step's optimizer is a transformation
 that hands the gradient back as its state (a parameter change below a
 float32 ulp of the parameter would lose it), the port's is left in .grad.
-The samples are the default Config's (reorder=True): with reorder=False
-the JAX sharded model's gradients sit up to 2.3e-2 of max|g| from a
-float64 step where the port's sit within 1.2e-4 (ROADMAP §3).
+The step comparison runs on the default Config's samples (reorder=True).
+On reorder=False samples (COO convs, segment pooling) the port's float32
+gradient sat 2.3e-2 of max|g| from JAX's sharded one.  JAX's sharded and
+single-device jax.grad agree there (within 1e-5); the gap is a near-tie:
+an fc_v1 hidden unit of one vertex within TIE_TOL of its row's scale from
+0, whose LeakyReLU branch XLA's programs take one way when the sample is
+an argument (the sharded step, jax.grad of a jitted loss) and the other
+when it is a constant of the program — and the port takes that one.  So on
+reorder=False samples: JAX's sharded step is held to JAX's jax.grad; the
+port's dp and gp steps to the port's float64 step with the float64 step's
+branches replayed (`testing.same_branches`, each held branch a near-tie
+within TIE_TOL), within F32_GRAD_TOL (2e-4); and the port's dp step to the
+mean of JAX's per-sample gradients with the sample a constant of the
+program, 1e-4.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from geobignn_tpu.data.builder import build_dual_sample as jbuild_dual_sample
 from geobignn_tpu.data.builder import build_raw as jbuild_raw
 from geobignn_tpu.data.builder import plan_for as jplan_for
 from geobignn_tpu.models import DualGNN as JDualGNN
+from geobignn_tpu.parallel.api import dual_loss_and_metrics as jdual_loss
 from geobignn_tpu_torch import params as pm
 from geobignn_tpu_torch import testing
 from geobignn_tpu_torch.config import Config
@@ -47,13 +59,12 @@ def _reference_native():
     testing.match_reference_native(jnative)
 
 
-@pytest.fixture(scope="module")
-def batch():
+def _batch(reorder: bool):
     """Two icosphere(2) samples under one merged plan, in both packages."""
     meshes = [(jsynth.add_noise(jsynth.icosphere(2), 0.2, seed=s), jsynth.icosphere(2))
               for s in (1, 2)]
-    jcfg = JBuildConfig(granularity=64, reorder=True)
-    cfg = builder.BuildConfig(granularity=64, reorder=True)
+    jcfg = JBuildConfig(granularity=64, reorder=reorder)
+    cfg = builder.BuildConfig(granularity=64, reorder=reorder)
     plan = None
     for m_n, m_o in meshes:
         p = jplan_for(*jbuild_raw(m_n, m_o, jcfg)[:2], jcfg.granularity)
@@ -63,6 +74,86 @@ def batch():
     tplan = tplan.merge(builder.plan_for(*builder.build_raw(*meshes[1], cfg)[:2], 64))
     samples = [builder.build_dual_sample(m_n, m_o, cfg, tplan)[0] for m_n, m_o in meshes]
     return samples, jsamples
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return _batch(True)
+
+
+@pytest.fixture(scope="module")
+def batch_unordered():
+    """reorder=False: COO convs and segment pooling, no bands or tables."""
+    return _batch(False)
+
+
+GRAB = optax.GradientTransformation(  # hands the applied gradient back as its state
+    lambda p: jax.tree.map(jnp.zeros_like, p),
+    lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+F32_GRAD_TOL = 2e-4  # chip_smoke.py's bound of a float32 step against a float64 one
+
+
+def _rel_errs(got: dict, want: dict) -> dict:
+    return {k: float((got[k] - want[k]).abs().max() / want[k].abs().max()) for k in want}
+
+
+def test_jax_sharded_grad_matches_jax_grad_reorder_false(batch_unordered):
+    """The reference against itself: JAX's dp=2 sharded step and the mean
+    of its single-device jax.grad, the sample an argument of both."""
+    _, jsamples = batch_unordered
+    params = {"params": pm.to_jax_params(DualGNN(device="cpu", seed=0).state_dict())["params"]}
+    stacked = jparallel.stack_samples(jsamples)
+    jstep = jparallel.make_sharded_train_step(JDualGNN(gp_axis="gp"), GRAB,
+                                              jparallel.make_mesh(2, 1), stacked)
+    _, g_sh, _ = jstep(params, GRAB.init(params), stacked, jax.random.PRNGKey(0))
+    grad = jax.jit(jax.grad(lambda p, s: jdual_loss(JDualGNN(), p, s, {})[0]))
+    g1 = jax.tree.map(lambda a, b: (a + b) / 2, *[grad(params, s) for s in jsamples])
+    err = _rel_errs(pm.from_jax_params(jax.tree.map(np.asarray, g_sh)),
+                    pm.from_jax_params(jax.tree.map(np.asarray, g1)))
+    assert max(err.values()) <= 1e-5, sorted(err.items(), key=lambda kv: -kv[1])[:3]
+
+
+@pytest.mark.parametrize("grid", [dict(dp=2), dict(gp=2)])
+def test_reorder_false_step_against_float64(batch_unordered, grid):
+    """The port's dp / gp step on reorder=False samples against the port's
+    float64 single-device step, the float64 step's branches replayed."""
+    from geobignn_tpu_torch.testing import float64_sample, same_branches
+
+    samples, _ = batch_unordered
+    state = DualGNN(device="cpu", seed=0).state_dict()
+    ref = DualGNN(device="cpu").to(torch.float64)
+    ref.load_state_dict(state)
+    choices: list = []
+    with same_branches(choices, replay=False):
+        for s in samples:
+            (api.dual_loss_and_metrics(ref, None, float64_sample(s.to(CPU)), {})[0] / 2).backward()
+    model = DualGNN(device="cpu")
+    model.load_state_dict(state)
+    dp, gp = grid.get("dp", 1), grid.get("gp", 1)
+    step = api.make_sharded_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                       api.make_mesh(dp, gp, [CPU] * (dp * gp)))
+    with same_branches(choices, replay=True) as flips:
+        step(api.stack_samples(samples), 0)
+    err = _rel_errs({k: p.grad.double() for k, p in model.named_parameters()},
+                    {k: p.grad for k, p in ref.named_parameters()})
+    assert max(err.values()) <= F32_GRAD_TOL, (flips, sorted(err.items(), key=lambda kv: -kv[1])[:3])
+
+
+def test_reorder_false_dp_step_matches_jax(batch_unordered):
+    """The port's dp=2 step against the mean of JAX's per-sample gradients,
+    each sample a constant of its program (JAX rounds the near-tie the
+    port's way there): 1e-4 of max|g|."""
+    samples, jsamples = batch_unordered
+    model = DualGNN(device="cpu", seed=0)
+    params = {"params": pm.to_jax_params(model.state_dict())["params"]}
+    step = api.make_sharded_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                       api.make_mesh(2, 1, [CPU] * 2))
+    step(api.stack_samples(samples), 0)
+    g = [jax.jit(jax.grad(lambda p, s=s: jdual_loss(JDualGNN(), p, s, {})[0]))(
+        params) for s in jsamples]
+    want = pm.from_jax_params(jax.tree.map(lambda a, b: np.asarray((a + b) / 2), *g))
+    err = _rel_errs({k: p.grad for k, p in model.named_parameters()}, want)
+    assert max(err.values()) <= 1e-4, sorted(err.items(), key=lambda kv: -kv[1])[:3]
 
 
 def test_stack_samples_round_trip(batch):
@@ -89,9 +180,7 @@ def test_dp_step_matches_jax(batch):
     step = api.make_sharded_train_step(model, opt, api.make_mesh(2, 1, [CPU] * 2))
     metrics = step(api.stack_samples(samples), 0)
 
-    grab = optax.GradientTransformation(
-        lambda p: jax.tree.map(jnp.zeros_like, p),
-        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    grab = GRAB
     params = {"params": pm.to_jax_params(before)["params"]}
     stacked = jparallel.stack_samples(jsamples)
     jstep = jparallel.make_sharded_train_step(JDualGNN(gp_axis="gp"), grab,
@@ -133,8 +222,8 @@ def test_gp_forward_matches_jax(batch):
 @pytest.mark.parametrize("grid", [dict(dp=2), dict(gp=2)])
 def test_trainer_sharded_epoch(grid):
     """Trainer with dp=2 or gp=2 on the CPU: three samples in global
-    batches of dp, the last filled by wrapping around; dcn > 1 is refused,
-    naming its ROADMAP item."""
+    batches of dp, the last filled by wrapping around; with dcn=2 the
+    same epoch runs on a (2, dp, gp) grid, global batches of 2 * dp."""
     m_o = jsynth.icosphere(1)
     ds = dataset.InMemoryDataset(
         [(jsynth.add_noise(m_o, 0.2, seed=s), m_o) for s in range(3)],
@@ -148,8 +237,11 @@ def test_trainer_sharded_epoch(grid):
     assert hist[0]["samples_per_s"] > 0 and np.isfinite(hist[-1]["loss"])
     assert hist[0]["edges_per_s_chip"] == pytest.approx(hist[0]["edges_per_s"] / tr.n_chips)
     assert steps == (2 if grid.get("dp") else 3)
-    with pytest.raises(NotImplementedError, match="item 10, multi-host dcn"):
-        Trainer_(Config(granularity=32, dcn=2), ds)
+    tr = Trainer_(Config(granularity=32, seed=2, max_epoch=1, dcn=2, **grid), ds)
+    assert tr._global_batch == 2 * grid.get("dp", 1) and tr.n_chips == 4
+    hist = []
+    tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+    assert np.isfinite(hist[0]["loss"]) and hist[0]["samples_per_s"] > 0
 
 
 def Trainer_(cfg, ds):

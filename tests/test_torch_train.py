@@ -106,9 +106,15 @@ def test_losses_match_jax(name):
 
 
 def test_loss_v_icp_is_not_ported():
+    """loss_v(apply_icp=True), refused until utils.icp_align was ported,
+    now runs: the L1 loss of the ICP-aligned prediction, as the JAX loss
+    (tests/test_torch_utils.py holds it and its gradient against JAX)."""
+    from geobignn_tpu_torch.utils import icp_align
+
     d = {k: torch.from_numpy(v) for k, v in _loss_inputs().items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.loss_v(d["a"], d["b"], d["mask"], apply_icp=True)
+    got = losses.loss_v(d["a"], d["b"], d["mask"], apply_icp=True)
+    aligned = icp_align(d["a"], d["b"], d["mask"], d["mask"])[0]
+    assert torch.equal(got, losses.loss_v(aligned, d["b"], d["mask"]))
 
 
 # --------------------------------------------------------------------------
@@ -244,9 +250,9 @@ def test_trainer_matches_jax(batch_size):
 
 
 def test_trainer_refuses_unported_modes():
-    """Several hosts (dcn > 1) are still refused, naming their ROADMAP item;
-    dp and gp route to the sharded step (tests/test_torch_parallel.py holds
-    them against JAX); the single-device modes of the JAX trainer are
+    """Nothing is refused any more: dp, gp and dcn route to the sharded step
+    (tests/test_torch_parallel.py and test_torch_dcn.py hold them against
+    JAX), dcn on a (dcn, dp, gp) grid; the single-device modes of the JAX trainer are
     routed as there (bf16
     activations, fusion, dynamic pooling, streaming, bucketing;
     tests/test_torch_precision.py, test_torch_fusion.py,
@@ -257,11 +263,10 @@ def test_trainer_refuses_unported_modes():
 
     ds = dataset.InMemoryDataset([_pair(synth, 1, 1)],
                                  builder.BuildConfig(granularity=32, reorder=True))
-    for kw in (dict(dp=2), dict(gp=2)):
+    for kw in (dict(dp=2), dict(gp=2), dict(dcn=2)):
         tr = Trainer(Config(granularity=32, **kw), ds, device="cpu")
         assert tr._sharded_step is not None and type(tr.model) is DualGNN
-    with pytest.raises(NotImplementedError, match="ROADMAP: modules to port, item 10"):
-        Trainer(Config(granularity=32, dcn=2), ds, device="cpu")
+    assert tr.n_chips == 2 and tr._global_batch == 2 and len(tr._mesh) == 2  # (2, 1, 1)
     routes = [(dict(edge_weight_type=3), DualGNNDynamic), (dict(dynamic_pool=True), DualGNNDynamic),
               (dict(precision="bfloat16"), DualGNN), (dict(fusion_features=4), DualGNN),
               (dict(preload=False), DualGNN), (dict(preload=False, buckets_growth=1.5), DualGNN)]
