@@ -145,8 +145,9 @@ non-zero without the final result line:
      (BUCKET_SEEDS), 20,000-face patches) trained with preload=False,
      buckets_growth=1.5, prefetch_depth=2, augment off, for 2 epochs
      (counted): the buckets and their padded slots against one merged plan,
-     one CUDA graph per bucket plan with its bytes (static inputs, private
-     pool), s/step and edges/s; the epoch losses against the same run
+     one CUDA graph per bucket plan with its static inputs' bytes, the
+     bytes of the memory pool they share, s/step and edges/s; the epoch
+     losses against the same run
      preloaded on one merged plan, on the card and, its first epoch, on
      the CPU (BUCKET_TOL);
      the busy share of an epoch streamed against the same epoch preloaded;
@@ -165,10 +166,15 @@ non-zero without the final result line:
      model's full width — Predictor(Config()) with phase 3's weights runs
      predict_mesh_halo on add_noise(icosphere(5), 0.2, seed=0) over
      HALO_PARTS (4) parts, devices=[cuda:0] * 4, in table mode and with
-     banded=True: each level's mode per branch; the launches of #1/#2 by
-     kernel name (profiled) and by the wrappers, each equal to parts x
-     banded level-1 convs; host build, the 4 parts' forward (CUDA events) and the
-     60 updates timed apart; each mode against the same call with
+     banded=True: each level's mode per branch; an eager, recorded forward,
+     then the forward as one CUDA graph (a call that warms up and
+     captures, then the counted replay), bit-equal to the eager one; the
+     launches of #1/#2 the capture recorded and the replay's by kernel name
+     (profiled), each equal to parts x banded level-1 convs; host build,
+     the 4 parts' forward graphed and eager (CUDA events around each of 20
+     calls, median and spread; kernels, device time and busy share from a
+     profile) and the 60 updates timed apart; each mode against the same
+     call with
      device="cpu" (POS_TOL_MEL / NORMAL_TOL); table mode against the
      single-device DualGNN on the same owner-constrained hierarchies
      (F32_TOL of max); banded with float32 aggregates against table mode
@@ -182,18 +188,25 @@ non-zero without the final result line:
      bf16 (phase 7's bounds) and float32 (F32_GRAD_TOL; the CPU's step held
      to the card's LeakyReLU branches, as phase 7); the float64 halo step on
      the CPU against the single-device full-batch float64 step on the same
-     hierarchies (F32_GRAD_TOL); Trainer.fit, #1-#4 counted by the
-     wrappers (4 steps x 24 each way) and on one more step by kernel name
-     (profiled) and by the wrappers, equal, loss per epoch,
-     s/step, edges/s; the comm report's
+     hierarchies (F32_GRAD_TOL); Trainer.fit, one CUDA graph per mesh:
+     #1-#4 by kernel name (4 steps x 24 each way) and by the wrappers (each
+     mesh's eager warm-up and its capture), then one more step, a replay,
+     by kernel name against the capture's record; loss per epoch, s/step,
+     edges/s; 3 steps of one mesh with rotation on, graphed against eager:
+     parameters, Adam's moments and metric sums bit-equal; one step graphed
+     and eager (CUDA events, 20 steps; profile); the comm report's
      bytes per conv against the single-device step's time; each recorded
      backward call against its plain backward (`[kernel-bwd]` lines);
  17. [dp] / [gp] / [dcn]: Trainer(Config(dp=2)), Config(gp=2) and
      Config(dcn=2, dp=1) (one process holding the (2, 1, 1) grid) on
-     [cuda:0] * 2 over phase 7's seeds-(0, 6) patches, float32 heads: one sharded step's
-     gradient against the single-device step of the same model
-     (F32_GRAD_TOL), then Trainer.fit (1 epoch); no aggregate wrapper launches
-     (the sharded model's convs are the COO conv, as the JAX model's with
+     [cuda:0] * 2 over phase 7's seeds-(0, 6) patches, float32 heads: one
+     eager sharded step's gradient against the single-device step of the
+     same model (F32_GRAD_TOL); 3 steps with rotation on as one CUDA graph
+     against eager (parameters, Adam's moments and metric sums bit-equal);
+     a replay counted (no aggregate launch, as the capture recorded); one
+     step graphed and eager (CUDA events, 20 steps; profile); then
+     Trainer.fit (1 epoch, graphed); no aggregate wrapper launches (the
+     sharded model's convs are the COO conv, as the JAX model's with
      gp_axis).  Several parts or grid entries on one card run one after
      another on one stream: no time of phases 15-17 is a multi-card time;
  18. [legacy], after each training set's phase 7: the four legacy models
@@ -898,10 +911,10 @@ def serve_phase(pred, seed, tag):
             predict.predict_dir_body(pred, dataset_root=root)
         torch.cuda.synchronize()
 
-        pred._graph = None  # a fresh plan: the first patch runs eagerly and captures
+        pred._program = None  # a fresh plan: the first patch runs eagerly and captures
         with _counted() as cnt:
             res = predict.predict_dir_body(pred, dataset_root=root)
-        graph, launches = pred._graph, cnt["device"]
+        (graph,), launches = pred._program.graphs.values(), cnt["device"]
         print(f"[{tag}] one mesh (noise seed {seed}, {mesh.n_faces} faces, 2 patches, "
               f"60 update iterations), profiled: the device ran {_nonzero(launches)}; "
               f"the wrappers counted {_nonzero(cnt['wrappers'])} (the eager patch and "
@@ -1106,7 +1119,7 @@ def train_phase(torch, np, seeds, overfit, kind):
     fit_s = time.perf_counter() - t0
     launches = cnt["device"]
     n_steps = cfg.max_epoch * len(train_ds)
-    (graph,) = tr._graphs.values()
+    (graph,) = tr._program.graphs.values()
     print(f"[{tag}] fit: {cfg.max_epoch} epochs x {len(train_ds)} steps in "
           f"{fit_s:.3f} s under the profiler; best error_f {best:.4f}; the device ran "
           f"{_nonzero(launches)}; the wrappers counted {_nonzero(cnt['wrappers'])} "
@@ -1130,18 +1143,18 @@ def train_phase(torch, np, seeds, overfit, kind):
 
 def _profiled(step, steps=5):
     """(host ms per step without the profiler, device ms per step, kernels
-    per step, {group: [ms, launches]}) of step(i), by profile_train_step's
-    profiler and kernel groups."""
+    per step, {group: [ms, launches]}, {kernel: (ms, launches)} per step) of
+    step(i), by profile_train_step's profiler and kernel groups."""
     import profile_train_step as pts
 
     step_ms, kernels = pts.profile_steps(step, steps)
     total = sum(ms for ms, _ in kernels.values())
     launches = sum(cnt for _, cnt in kernels.values())
-    return step_ms, total, launches, pts.groups_of(kernels)
+    return step_ms, total, launches, pts.groups_of(kernels), kernels
 
 
 def _busy(prof):
-    step_ms, dev_ms, launches, _ = prof
+    step_ms, dev_ms, launches = prof[:3]
     return (f"{launches:.0f} kernels, device {dev_ms:.3f} ms, busy share "
             f"{dev_ms / step_ms:.3f} (host clock {step_ms:.3f} ms)" if dev_ms else
             f"device time not measured (the profiler recorded no kernel); host "
@@ -1151,6 +1164,45 @@ def _busy(prof):
 def _spread(t):
     return (f"median {t['median_ms']:.3f}, min {t['min_ms']:.3f}, max "
             f"{t['max_ms']:.3f} ms over {t['n']}")
+
+
+def _graph_and_eager(step):
+    """step(i) replayed as its graph and run eagerly (testing.eager_steps):
+    per call, the time (CUDA events around each of 20 calls) and the
+    profile (_profiled: kernels, device time, busy share, the kernel
+    groups; over three graphed calls, whose host clock a single short call
+    would overstate, and one eager call), both ways, and the wall seconds
+    all this took."""
+    import itertools
+
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train import profiling
+
+    t0 = time.perf_counter()
+    it = itertools.count(1000)
+    out = {"graphed": profiling.time_steps(lambda: step(next(it)), steps=20)}
+    out["graphed_prof"] = _profiled(step, steps=3)
+    with eager_steps():
+        out["eager"] = profiling.time_steps(lambda: step(next(it)), steps=20)
+        out["eager_prof"] = _profiled(step, steps=1)
+    for mode in ("graphed", "eager"):
+        prof = out[mode + "_prof"]
+        out[mode]["busy"] = prof[1] / prof[0] if prof[1] else None
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _both(times):
+    prof = times["graphed_prof"]
+    groups = sorted(prof[3].items(), key=lambda kv: -kv[1][0])
+    top = sorted(prof[4].items(), key=lambda kv: -kv[1][0])[:4]
+    return (f"graphed {_spread(times['graphed'])}, {_busy(prof)}; eager "
+            f"{_spread(times['eager'])}, {_busy(times['eager_prof'])}; the graph's device "
+            f"time by kernel group: "
+            + ", ".join(f"{g} {ms:.3f} ms in {n:.0f}" for g, (ms, n) in groups)
+            + "; its largest kernels: "
+            + ", ".join(f"{name[:60]} {ms:.3f} ms in {n:.0f}" for name, (ms, n) in top)
+            + f" (timed and profiled in {times['wall_s']:.1f} s)")
 
 
 def graph_train_phase(torch, np, train_ds, seeds, kind):
@@ -1181,7 +1233,7 @@ def graph_train_phase(torch, np, train_ds, seeds, kind):
                                                          m["loss"])))
         runs[mode] = (tr, lrs)
     (g, g_hist), (e, e_hist) = runs["graphed"], runs["eager"]
-    assert len(g._graphs) == 1 and not e._graphs
+    assert len(g._program.graphs) == 1 and not e._program.graphs
     pairs = [(a, b) for a, b in zip(g.model.parameters(), e.model.parameters())]
     pairs += [(g.optimizer.state[a][k], e.optimizer.state[b][k])
               for a, b in zip(g.model.parameters(), e.model.parameters())
@@ -1201,7 +1253,7 @@ def graph_train_phase(torch, np, train_ds, seeds, kind):
     sample = tr._get(train_ds, "t", 0)
     it = itertools.count()
     graphed = profiling.time_steps(lambda: tr.fused_step(sample, next(it)), steps=20)
-    graph = next(iter(tr._graphs.values()))
+    graph = next(iter(tr._program.graphs.values()))
     dst, src = capture.tensors(graph.inputs), capture.tensors((sample, None))
     copy_bytes = sum(t.numel() * t.element_size() for t in src)
     copy_ms = _cuda_ms(lambda: torch._foreach_copy_(dst[:len(src)], src), reps=20)
@@ -1286,7 +1338,7 @@ def union_phase(torch, np, kind):
     it = itertools.count(1)
     stats = profiling.time_steps(lambda: tr.fused_step(sample, next(it)), steps=20,
                                  warmup=2)
-    (graph,) = tr._graphs.values()
+    (graph,) = tr._program.graphs.values()
     with _counted() as cnt:  # replays: the wrappers count none
         for _ in range(3):
             tr.fused_step(sample, next(it))
@@ -1699,7 +1751,7 @@ def bf16_phase(torch, np, train_ds, seeds, f32, kind):
     cfg = Config(seed=0, max_epoch=5, precision="bfloat16")
     g, e, g_hist, e_hist, cnt, same = _fit_both_ways(torch, cfg, train_ds)
     n_steps = cfg.max_epoch * len(train_ds)
-    (graph,) = g._graphs.values()
+    (graph,) = g._program.graphs.values()
     print(f"[{tag}] Trainer.fit, bf16 activations, {n_steps} steps graphed and eager: "
           f"epoch losses graphed {[round(m['loss'], 6) for m in g_hist]}, eager "
           f"{[round(m['loss'], 6) for m in e_hist]}; parameters and Adam's moments "
@@ -1875,8 +1927,9 @@ def _epoch_busy(torch, np, tr, rng_seed):
 
 
 def _graph_bytes(torch, graph):
-    """(static input bytes, private pool bytes) a capture.Graph holds on
-    the device: its static inputs, and the segments of its memory pool."""
+    """(static input bytes, pool bytes) a capture.Graph holds on the device:
+    its static inputs, and the segments of its memory pool (which the other
+    graphs of its capture.Program share)."""
     from geobignn_tpu_torch.capture import tensors
 
     inputs = sum(t.numel() * t.element_size() for t in tensors(graph.inputs))
@@ -1942,16 +1995,16 @@ def bucket_phase(torch, np, kind):
         hist = []
         with _counted() as cnt:
             tr.fit(on_epoch=lambda t, m, e: hist.append(m))
-        graphs = list(tr._graphs.values())
+        graphs = list(tr._program.graphs.values())
         held = [_graph_bytes(torch, g) for g in graphs]
         for m in hist:
             print(f"[{tag}] epoch: loss {m['loss']:.6f}; {1.0 / m['samples_per_s']:.4f} "
                   f"s/step; edges/s {m['edges_per_s']:.4e} (streamed, under the profiler)")
         print(f"[{tag}] {len(graphs)} CUDA graphs of the step, one per bucket plan: "
-              + "; ".join(f"{inp / 1e6:.1f} MB of static inputs + {pool / 1e6:.1f} MB "
-                          f"of private pool, replayed {g.replays} times"
-                          for g, (inp, pool) in zip(graphs, held))
-              + f"; the device ran {_nonzero(cnt['device'])}")
+              + "; ".join(f"{inp / 1e6:.1f} MB of static inputs, replayed {g.replays} times"
+                          for g, (inp, _) in zip(graphs, held))
+              + f"; one memory pool of {held[0][1] / 1e6:.1f} MB, which they share; the "
+              f"device ran {_nonzero(cnt['device'])}")
         assert len(graphs) == n_b >= 3 and all(np.isfinite(m["loss"]) for m in hist)
         assert all(pool > 0 for _, pool in held)
         assert sum(g.replays for g in graphs) == cfg.max_epoch * len(ds) - n_b
@@ -2042,7 +2095,7 @@ def dynamic_phase(torch, np, train_ds, static_ms, kind):
     with _counted() as cnt:
         tr.fit(on_epoch=lambda t, m, e: hist.append(m))
     n_steps = cfg.max_epoch * len(train_ds)
-    (graph,) = tr._graphs.values()
+    (graph,) = tr._program.graphs.values()
     for m in hist:
         print(f"[{tag}] epoch: loss {m['loss']:.6f}; {1.0 / m['samples_per_s']:.4f} "
               f"s/step; edges/s {m['edges_per_s']:.4e}")
@@ -2169,7 +2222,7 @@ def halo_serve_phase(torch, np, state, kind):
     from geobignn_tpu_torch.infer import predict
     from geobignn_tpu_torch.models.dual_gnn import DualGNN
     from geobignn_tpu_torch.parallel import halo_train as ht
-    from geobignn_tpu_torch.testing import aggregates_in
+    from geobignn_tpu_torch.testing import aggregates_in, eager_steps
 
     cfg = Config()
     pred = predict.Predictor(cfg, state, device="cuda")
@@ -2186,25 +2239,34 @@ def halo_serve_phase(torch, np, state, kind):
         sample = ht.build_halo_train_sample(mesh, None, cfg.build_config(), HALO_PARTS,
                                             banded=banded, devices=devs)
         host_s = time.perf_counter() - t0
-        fwd = ht.make_halo_forward(pred.model, sample.static)
-        fwd_ms = _cuda_ms(lambda: fwd(sample.arrays), reps=3)
-        with _recording(captured) if banded else contextlib.nullcontext():
-            pred.predict_mesh_halo(mesh, HALO_PARTS, banded, devs)  # warm-up (recorded)
-        with _counted() as cnt:
+        with (_recording(captured) if banded else contextlib.nullcontext()), eager_steps():
+            v_e, n_e = pred.predict_mesh_halo(mesh, HALO_PARTS, banded, devs)  # recorded
+        pred._halo = None  # a fresh plan: the next call runs eagerly and captures
+        v_w, n_w = pred.predict_mesh_halo(mesh, HALO_PARTS, banded, devs)
+        with _counted() as cnt:  # the main path: one replay
             vp, nf = pred.predict_mesh_halo(mesh, HALO_PARTS, banded, devs)
+        fwd = pred._halo[1]
+        (graph,) = fwd.program.graphs.values()
         want = _halo_expected(sample, HALO_PARTS)
-        print(f"[halo] {mode}: levels {_halo_modes(sample)}; launches of #1/#2 by "
-              f"kernel name {_nonzero(cnt['device'])}, expected {_nonzero(want)} "
-              f"(parts x banded level-1 convs); wrappers {_nonzero(cnt['wrappers'])}")
-        # eager: every launch through a wrapper, and each one ran
-        assert cnt["wrappers"] == want and cnt["device"] == _aggregates(want), cnt
+        print(f"[halo] {mode}: levels {_halo_modes(sample)}; the capture recorded "
+              f"{_nonzero(graph.launches)}, expected {_nonzero(want)} (parts x banded "
+              f"level-1 convs); the replay, by kernel name {_nonzero(cnt['device'])}, "
+              f"wrappers {_nonzero(cnt['wrappers'])}")
+        assert graph.launches == want and cnt["device"] == _aggregates(want), cnt
+        assert graph.replays == 1 and _replayed(cnt, graph, 1, 0), cnt
+        same = all(np.array_equal(a, b) for a, b in ((v_w, v_e), (n_w, n_e), (vp, v_e),
+                                                     (nf, n_e)))
+        print(f"[halo] {mode}: graphed (warm-up and replay) against eager forward: "
+              f"positions and normals bit-equal {same}")
+        assert same
         if banded:
             launches = want
+        times = _graph_and_eager(lambda i: fwd(sample.arrays))
         upd = [torch.from_numpy(a).to("cuda") for a in (
             vp, mesh.fv_indices.astype(np.int64), mesh.vf_indices.astype(np.int64), nf)]
         upd_ms = _cuda_ms(lambda: predict.update_positions(*upd, n_iter=60), reps=3)
         print(f"[halo] {mode}: host build {host_s:.3f} s; forward of the {HALO_PARTS} "
-              f"parts {fwd_ms:.3f} ms (CUDA events, eager); 60 update iterations "
+              f"parts, CUDA events: {_both(times)}; 60 update iterations "
               f"{upd_ms:.3f} ms; card {kind}")
         t0 = time.perf_counter()
         vp_c, nf_c = pred_cpu.predict_mesh_halo(mesh, HALO_PARTS, banded)
@@ -2236,7 +2298,7 @@ def halo_serve_phase(torch, np, state, kind):
     # in float32 compute (as phase 4 holds the banded patch against the
     # table convs); with the default's bf16 operands, the normals to
     # HALO_BF16_NORMAL_TOL, a multiple of the JAX package's own distance
-    with aggregates_in(torch.float32):
+    with aggregates_in(torch.float32), eager_steps():  # a graph holds its compute dtype
         res["banded32"] = pred.predict_mesh_halo(mesh, HALO_PARTS, True, devs)
     for mode in ("banded32", "banded"):
         e_pos = float(np.abs(res[mode][0] - res["table"][0]).max()) / mel
@@ -2291,7 +2353,6 @@ def halo_train_phase(torch, np, kind):
     from geobignn_tpu_torch.data import synth
     from geobignn_tpu_torch.data.builder import attach_tables
     from geobignn_tpu_torch.models.dual_gnn import DualGNN
-    from geobignn_tpu_torch.ops import banded_cuda
     from geobignn_tpu_torch.parallel import accounting
     from geobignn_tpu_torch.testing import grad_agreement, same_branches
     from geobignn_tpu_torch.train.halo_trainer import HaloTrainer
@@ -2358,28 +2419,34 @@ def halo_train_phase(torch, np, kind):
     del g_bf, c_bf, g32, c32, h64, ref64, s0_cpu, single, ref
     torch.cuda.empty_cache()
 
-    # the main path: fit, counted by the wrappers; the device's count by
-    # kernel name is read on one more step
+    # the main path: fit, one graph per mesh (its first step eager, the
+    # warm-up, then the capture; later steps replay), counted by the
+    # wrappers and by kernel name; then one more step, a replay
     hist = []
-    banded_cuda.reset_launches()
-    tr.fit(on_epoch=lambda t, m, e: hist.append(m))
-    fit_launches = dict(banded_cuda.LAUNCHES)
     steps = cfg.max_epoch * len(pairs)
     per_step = _halo_expected(s0, HALO_PARTS)
     per_step.update({k + "_bwd": v for k, v in per_step.items() if v})
     want = {k: steps * v for k, v in per_step.items()}
+    with _counted() as fit_cnt:
+        tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+    graphs = [g for st in tr._steps.values() for g in st.program.graphs.values()]
     with _counted() as cnt:
         tr._step_for(s0)(s0.arrays, 0)
-    print(f"[halo-train] Trainer.fit {cfg.max_epoch} epochs x {len(pairs)} meshes: the "
-          f"wrappers counted {_nonzero(fit_launches)}, expected {_nonzero(want)}; one more "
-          f"step, profiled: by kernel name {_nonzero(cnt['device'])}, expected "
-          f"{_nonzero(per_step)}; "
+    (graph,) = tr._step_for(s0).program.graphs.values()
+    print(f"[halo-train] Trainer.fit {cfg.max_epoch} epochs x {len(pairs)} meshes, "
+          f"{len(graphs)} graphs: by kernel name {_nonzero(fit_cnt['device'])}, expected "
+          f"{_nonzero(want)}; the wrappers (warm-ups and captures) "
+          f"{_nonzero(fit_cnt['wrappers'])}; one more step, a replay: by kernel name "
+          f"{_nonzero(cnt['device'])}, the capture recorded {_nonzero(graph.launches)}; "
           + "; ".join(f"epoch {i} loss {m['loss']:.6f} {1.0 / m['samples_per_s']:.3f} "
                       f"s/step {m['edges_per_s']:.4e} edges/s" for i, m in enumerate(hist))
-          + f" (eager, {HALO_PARTS} parts on one card; card {kind})")
-    assert fit_launches == want and cnt["wrappers"] == per_step, (fit_launches, cnt)
-    assert cnt["device"] == _aggregates(per_step), cnt
+          + f" (graphed, {HALO_PARTS} parts on one card; card {kind})")
+    assert len(graphs) == len(pairs) and all(g.launches == per_step for g in graphs)
+    assert fit_cnt["device"] == _aggregates(want), fit_cnt
+    assert fit_cnt["wrappers"] == {k: 2 * len(pairs) * v for k, v in per_step.items()}
+    assert cnt["device"] == _aggregates(per_step) and _replayed(cnt, graph, 1, 0), cnt
     assert all(np.isfinite(m["loss"]) for m in hist) and hist[-1]["loss"] < hist[0]["loss"]
+    _halo_step_graph_vs_eager(torch, state, s0, cfg)
 
     rep = accounting.halo_comm_report(s0.structure, step_ms_single_chip=single_ms)
     print(f"[halo] comm report ({HALO_PARTS} parts, one mesh, the single-device step "
@@ -2390,30 +2457,69 @@ def halo_train_phase(torch, np, kind):
     return captured, want
 
 
+def _halo_step_graph_vs_eager(torch, state, sample, cfg):
+    """The halo step (rotation on) as one graph against the eager step:
+    parameters, Adam's moments and the metric sums after 3 steps of the same
+    sample and seeds bit-equal; then per step, graphed and eager, the time
+    and the profile."""
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.parallel import halo_train as ht
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train import optim
+
+    runs = []
+    for eager in (False, True):
+        model = DualGNN(device="cuda")
+        model.load_state_dict(state)
+        opt = optim.make_optimizer(cfg, model.parameters())
+        step = ht.make_halo_train_step(model, opt, sample.static, cfg.loss_cfg(),
+                                       cfg.pool_type, augment=True)
+        with eager_steps() if eager else contextlib.nullcontext():
+            sums = sum(torch.stack([v for _, v in sorted(step(sample.arrays, seed).items())])
+                       for seed in (1, 2, 3))
+        runs.append((model, opt, sums, step))
+    (gm, go, gs, step), (em, eo, es, _) = runs
+    same = _same_state(torch, gm, go, em, eo) and torch.equal(gs, es)
+    print(f"[halo-train] 3 steps of one mesh (rotation on), graphed against eager: "
+          f"parameters, Adam's moments and metric sums bit-equal {same}")
+    assert same and [g.replays for g in step.program.graphs.values()] == [2]
+    times = _graph_and_eager(lambda i: step(sample.arrays, i))
+    print(f"[halo-train] one step of the {HALO_PARTS} parts (rotation on), CUDA events: "
+          f"{_both(times)}")
+
+
+def _same_state(torch, gm, go, em, eo):
+    """Two models' parameters and their Adam moments bit-equal."""
+    return all(torch.equal(a, b) and all(torch.equal(go.state[a][k], eo.state[b][k])
+                                         for k in ("exp_avg", "exp_avg_sq", "step"))
+               for a, b in zip(gm.parameters(), em.parameters()))
+
+
 def sharded_phase(torch, np, train_ds, kind):
     """Phase 17, [dp] / [gp] / [dcn]: Trainer(Config(dp=2)), Config(gp=2)
     and Config(dcn=2, dp=1) on [cuda:0] * 2 over phase 7's patches: one
-    step's gradient against the single-device step of the same (COO) model,
-    then Trainer.fit."""
+    eager step's gradient against the single-device step of the same (COO)
+    model; the graphed step against the eager one (3 steps, rotation on:
+    parameters, Adam's moments and metric sums bit-equal), a replay counted,
+    both timed and profiled; then Trainer.fit, graphed."""
     from geobignn_tpu_torch.config import Config
     from geobignn_tpu_torch.models.dual_gnn import DualGNN
     from geobignn_tpu_torch.ops import banded_cuda
     from geobignn_tpu_torch.parallel import api
-    from geobignn_tpu_torch.testing import grad_agreement
+    from geobignn_tpu_torch.testing import eager_steps, grad_agreement
     from geobignn_tpu_torch.train.trainer import Trainer
 
     dev = torch.device("cuda", 0)
     for grid in (dict(dp=2), dict(gp=2), dict(dcn=2, dp=1)):
+        t_grid = time.perf_counter()
         tag = next(iter(grid))
         cfg = Config(seed=0, max_epoch=1, augment=False, fc_precision="float32", **grid)
         tr = Trainer(cfg, train_ds, devices=[dev] * 2)
         state = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
         idx = list(range(tr._global_batch))
         batch = api.stack_samples([train_ds.get(i, tr.plan) for i in idx])
-        t0 = time.perf_counter()
-        tr._sharded_step(batch, 0)
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
+        with eager_steps():  # an eager step leaves its gradient in .grad
+            tr._sharded_step(batch, 0)
         ref = DualGNN(device="cuda")
         ref.load_state_dict(state)
         for i in idx:
@@ -2423,21 +2529,46 @@ def sharded_phase(torch, np, train_ds, kind):
         for prm in ref.parameters():
             prm.grad.div_(len(idx))
         worst = max(v[0] for v in grad_agreement(tr.model, ref).values())
+        del tr, ref
+        # graphed against eager: 3 steps of the same batch and seeds
+        runs = []
+        for eager in (False, True):
+            t = Trainer(dataclasses.replace(cfg, augment=True), train_ds, devices=[dev] * 2)
+            t.model.load_state_dict(state)
+            with eager_steps() if eager else contextlib.nullcontext():
+                sums = sum(torch.stack([v for _, v in sorted(t._sharded_step(batch, seed).items())])
+                           for seed in (1, 2, 3))
+            runs.append((t, sums))
+        (g, gs), (e, es) = runs
+        same = _same_state(torch, g.model, g.optimizer, e.model, e.optimizer) and torch.equal(gs, es)
+        (graph,) = g._sharded_step.program.graphs.values()
+        with _counted() as cnt:
+            g._sharded_step(batch, 4)
+        times = _graph_and_eager(lambda i: g._sharded_step(batch, i))
+        del g, e, runs
         hist = []
+        tr = Trainer(cfg, train_ds, devices=[dev] * 2)
         banded_cuda.reset_launches()
         tr.fit(on_epoch=lambda t, m, e: hist.append(m))
-        print(f"[{tag}] {grid}: one step ({len(idx)} of phase 7's patches, "
-              f"{step_s * 1e3:.1f} ms wall, eager, 2 grid entries on cuda:0"
-              + ("; one process: a multi-card or multi-process time is not measured"
-                 if tag == "dcn" else "") + ") against the single-device step of "
-              f"the same model: worst tensor {worst:.3e} of its max|g| (tol "
-              f"{F32_GRAD_TOL}); fit: loss {hist[0]['loss']:.6f}, "
+        print(f"[{tag}] {grid}: one step ({len(idx)} of phase 7's patches, 2 grid entries on "
+              f"cuda:0" + ("; one process: a multi-card or multi-process time is not "
+                           "measured" if tag == "dcn" else "") + ") against the single-device "
+              f"step of the same model: worst tensor {worst:.3e} of its max|g| (tol "
+              f"{F32_GRAD_TOL}); 3 steps graphed against eager (rotation on): parameters, "
+              f"Adam's moments and metric sums bit-equal {same}; a replay, by kernel name "
+              f"{_nonzero(cnt['device'])}, the capture recorded {_nonzero(graph.launches)}")
+        print(f"[{tag}] one step, CUDA events: {_both(times)}")
+        print(f"[{tag}] fit (graphed): loss {hist[0]['loss']:.6f}, "
               f"{hist[0]['samples_per_s']:.3f} samples/s, {hist[0]['edges_per_s']:.4e} "
-              f"edges/s; aggregate kernels launched {_nonzero(banded_cuda.LAUNCHES)} (the "
-              f"sharded model's convs are COO, as the JAX model's with gp_axis); card {kind}")
-        assert worst <= F32_GRAD_TOL and np.isfinite(hist[0]["loss"])
+              f"edges/s, {len(tr._sharded_step.program.graphs)} graph; aggregate kernels "
+              f"launched {_nonzero(banded_cuda.LAUNCHES)} (the sharded model's convs are "
+              f"COO, as the JAX model's with gp_axis); card {kind}; "
+              f"{time.perf_counter() - t_grid:.1f} s for this grid")
+        assert worst <= F32_GRAD_TOL and np.isfinite(hist[0]["loss"]) and same
+        assert _replayed(cnt, graph, 1, 0) and sum(cnt["device"].values()) == 0, cnt
         assert sum(banded_cuda.LAUNCHES.values()) == 0
-        del tr, ref, batch
+        assert len(tr._sharded_step.program.graphs) == 1
+        del tr, batch
         torch.cuda.empty_cache()
 
 
@@ -2873,8 +3004,10 @@ def main() -> int:
     _lap(t_start, "the heads")
     # 15-17. the multi-device paths, every part on cuda:0 ------------------------
     halo_fwd, halo_launches = halo_serve_phase(torch, np, state, kind)
+    _lap(t_start, "phase 15")
     rows += [check_forward(key, halo_fwd[key], reps=10) for key in sorted(halo_fwd)]
     halo_bwd, halo_fit = halo_train_phase(torch, np, kind)
+    _lap(t_start, "phase 16")
     bwd_rows += [check_backward(key, ent, gen) for key, ent in sorted(halo_bwd.items())]
     more += [halo_launches, halo_fit]
     del halo_fwd, halo_bwd

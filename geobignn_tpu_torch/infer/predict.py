@@ -167,7 +167,8 @@ class Predictor:
         )
         self.model.load_state_dict(params)
         self.model.eval()
-        self._graph = None  # capture.Graph of the forward of the last plan
+        self._program = None  # capture.Program of the forward of the last plan
+        self._halo = None  # (key, halo forward) of the last halo sample's shapes
 
     @classmethod
     def from_run(cls, run_dir: str, sub_size: int | None = None,
@@ -203,14 +204,10 @@ class Predictor:
         sample = sample.to(self.device)
         if self.device.type != "cuda" or capture.EAGER:
             return self.model(sample)
-        graph = self._graph
-        if graph is not None and graph.key == capture.signature((sample,)):
-            return graph(sample)
-        self._graph = None  # the old graph's memory goes before the new capture
-        with capture.side_stream():
-            out = self.model(sample)
-        self._graph = capture.Graph(self.model, sample)
-        return out
+        if self._program is None or capture.signature((sample,)) not in self._program.graphs:
+            self._program = None  # the old graph's memory goes before the new capture
+            self._program = capture.Program(self.model)
+        return self._program(sample)
 
     def _apply(self, sample):
         vert_p, norm_p = self.forward(sample)
@@ -283,7 +280,10 @@ class Predictor:
         over n_parts parts and denoised as ONE graph.  `banded=True` runs the
         level-1 convs of each part through the banded aggregate.  Returns
         (denoised positions before integration, face normals), in the
-        mesh's own order and frame."""
+        mesh's own order and frame.  With every part on one card the
+        forward is one CUDA graph (parallel/halo_train.make_halo_forward),
+        kept for the next mesh of the same exchange schedule and shapes;
+        another replaces it."""
         from geobignn_tpu_torch.parallel import halo_train as ht
         from geobignn_tpu_torch.train.halo_trainer import part_devices
 
@@ -300,8 +300,12 @@ class Predictor:
             devs = part_devices(n_parts or torch.cuda.device_count(), self.device)
         sample = ht.build_halo_train_sample(mesh_n, None, self.cfg.build_config(), len(devs),
                                             banded=banded, devices=devs)
-        fwd = ht.make_halo_forward(self.model, sample.static, self.cfg.pool_type)
-        vp, np_arr = ht.unshard_predictions(sample, *fwd(sample.arrays))
+        key = (repr(sample.static), capture.signature(sample.arrays))
+        if self._halo is None or self._halo[0] != key:
+            self._halo = None  # the old graph's memory goes before the new capture
+            self._halo = (key, ht.make_halo_forward(self.model, sample.static,
+                                                    self.cfg.pool_type))
+        vp, np_arr = ht.unshard_predictions(sample, *self._halo[1](sample.arrays))
         meta = sample.meta
         if "perm_v" in meta:  # back to the original vertex / face order
             u = np.empty_like(vp)

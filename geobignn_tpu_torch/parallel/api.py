@@ -28,6 +28,12 @@ processes (`distributed_init`, one process per dcn entry) each process
 holds its own (dp, gp) grid and runs its replicas, and the summed
 gradients and metrics are added over the process group in one all-reduce
 per step — JAX's one pmean across DCN.
+
+The step is one CUDA graph per batch shape (capture.py), as the JAX step is
+one `jit`, where the whole grid lives on one card in one process
+(capture.one_card): one card holding every replica, and dcn in one
+process.  A grid over several cards, and dcn over several processes (whose
+all-reduce would have to be captured from NCCL), run eagerly.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
+from geobignn_tpu_torch import capture
 from geobignn_tpu_torch.data import augment as aug
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.structs import DualSample, _Struct
@@ -102,7 +109,7 @@ def _map_leaves(fn, values: list):
             for f in dataclasses.fields(first)})
     if isinstance(first, tuple):
         return tuple(_map_leaves(fn, list(vs)) for vs in zip(*values))
-    if isinstance(first, (np.ndarray, np.generic)):
+    if isinstance(first, (np.ndarray, np.generic)) or torch.is_tensor(first):
         return fn(values)
     return first  # static ints and None
 
@@ -112,13 +119,14 @@ def stack_samples(samples: list[DualSample]) -> DualSample:
     return _map_leaves(lambda xs: np.stack([np.asarray(x) for x in xs]), samples)
 
 
-def sample_at(batched: DualSample, i: int) -> DualSample:
-    """Sample i of a stacked batch."""
-    return _map_leaves(lambda xs: np.asarray(xs[0])[i], [batched])
+def sample_at(batched: DualSample, i) -> DualSample:
+    """Sample i (or the slice i) of a stacked batch, of arrays or of tensors
+    (views)."""
+    return _map_leaves(lambda xs: xs[0][i], [batched])
 
 
 def batch_size_of(batched: DualSample) -> int:
-    return int(np.asarray(batched.v.x).shape[0])
+    return int(batched.v.x.shape[0])
 
 
 def dual_loss_and_metrics(model, params, sample: DualSample, cfg: dict,
@@ -159,35 +167,40 @@ def make_sharded_train_step(model, optimizer, mesh: list, loss_cfg: dict | None 
     own replicas (the group's rank-th block of the batch) and the sums are
     added over the group in one all-reduce.  The metrics are the means over
     the batch, as tensors on the parameters' device.  With `augment` each
-    sample gets its own rotation, drawn from a torch.Generator seeded by
-    (seed, replica, index).  gp_shard=False keeps each replica's edges
-    whole (dynamic pooling, which is dp-only)."""
+    sample gets its own rotation, drawn before the step from a
+    torch.Generator seeded by (seed, replica, index).  gp_shard=False keeps
+    each replica's edges whole (dynamic pooling, which is dp-only).
+
+    Each replica's block of the batch is copied to its row's first device;
+    then, where the grid is on one card in one process and the optimizer is
+    capturable (Adam on the card), the step is one replay of the CUDA graph
+    of the batch's shapes (`step.program`): every replica's forward and
+    backward into .grad, the missing gradients filled, the division by the
+    batch, the optimizer and the metrics; the first step of a shape runs
+    eagerly, as the warm-up, and captures it.  Its metrics are the graph's
+    own tensors, which the next step overwrites."""
     from geobignn_tpu_torch.pool.dynamic import fill_missing_grads
 
     cfg = loss_cfg or {}
     rows = replica_rows(mesh)
     procs = _group_size()
     first = dist.get_rank() * len(rows) if procs > 1 else 0
+    n_rep = len(rows) * procs
 
-    def step(batch: DualSample, seed: int = 0) -> dict:
-        b = batch_size_of(batch)
-        n_rep = len(rows) * procs
-        if b % n_rep:
-            raise ValueError(f"batch {b} is not divisible by the {n_rep} replicas")
-        b_local = b // n_rep
+    def body(blocks: list, rots) -> dict:
+        b_local = batch_size_of(blocks[0])
+        b = b_local * n_rep
         named = dict(model.named_parameters())
         home = next(iter(named.values())).device
         optimizer.zero_grad(set_to_none=True)
         sums: dict = {}
-        for r, row in enumerate(rows):
-            rank = first + r
+        for r, (row, block) in enumerate(zip(rows, blocks)):
             dev = row[0]
             local = {k: v.to(dev) for k, v in named.items()}
             for i in range(b_local):
-                sample = sample_at(batch, rank * b_local + i).to(dev)
-                if augment:
-                    gen = torch.Generator(device=dev).manual_seed(_rotation_seed(seed, rank, i))
-                    sample = aug.rotate_sample(sample, aug.random_rotation_matrix(gen))
+                sample = sample_at(block, i)
+                if rots is not None:
+                    sample = aug.rotate_sample(sample, rots[r * b_local + i])
                 loss, m = dual_loss_and_metrics(model, local, sample, cfg,
                                                 row if gp_shard else None)
                 loss.backward()
@@ -207,4 +220,26 @@ def make_sharded_train_step(model, optimizer, mesh: list, loss_cfg: dict | None 
         optimizer.step()
         return {k: sums[k] / b for k in keys}
 
+    # the gradients a capture leaves point into the graph's memory; outside
+    # it the parameters hold none (each step writes them anew)
+    program = capture.Program(body, settle=lambda: optimizer.zero_grad(set_to_none=True))
+    devices = [d for row in rows for d in row]
+
+    def step(batch: DualSample, seed: int = 0) -> dict:
+        b = batch_size_of(batch)
+        if b % n_rep:
+            raise ValueError(f"batch {b} is not divisible by the {n_rep} replicas")
+        b_local = b // n_rep
+        blocks = [sample_at(batch, slice((first + r) * b_local, (first + r + 1) * b_local))
+                  .to(row[0]) for r, row in enumerate(rows)]
+        rots = None
+        if augment:
+            rots = [aug.random_rotation_matrix(torch.Generator(device=row[0]).manual_seed(
+                _rotation_seed(seed, first + r, i)))
+                for r, row in enumerate(rows) for i in range(b_local)]
+        if capture.one_card(devices) and capture.capturable(optimizer):
+            return program(blocks, rots)
+        return body(blocks, rots)
+
+    step.program = program
     return step

@@ -7,8 +7,10 @@ boundary rows.  The JAX step is one `shard_map` program per device whose
 gradients come out of the transpose psummed; here one process drives the P
 parts (parallel/partition.py), each part computes with a copy of the
 parameters on its device, and autograd sums every part's gradient into the
-one parameter set, which one optimizer step then updates.  The step runs
-eagerly; each part's work is queued on its own device.
+one parameter set, which one optimizer step then updates.  Each part's work
+is queued on its own device.  Where every part lives on one card, the step
+and the forward are each one CUDA graph per sample's shapes (capture.py),
+the JAX `jit`; parts on several cards run eagerly (capture.one_card).
 
 Host half: `build_halo_train_sample` takes a raw mesh pair to a sample
 whose `arrays` are P per-part tensor dicts (`HaloTrainSample.to` moves each
@@ -23,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from geobignn_tpu_torch import capture
 from geobignn_tpu_torch.data.augment import random_rotation_matrix
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.parallel import halo_model as hm
@@ -207,6 +210,10 @@ def _static_required(static_d, what: str) -> dict:
     return static_d
 
 
+def _part_devices(arrays: list) -> list:
+    return [a["xv"].device for a in arrays]
+
+
 def make_halo_train_step(model, optimizer, static_d: dict | None = None,
                          loss_cfg: dict | None = None, pool_type: str = "max",
                          augment: bool = False, n_steps: int = 1, compute_dtype=None):
@@ -216,22 +223,27 @@ def make_halo_train_step(model, optimizer, static_d: dict | None = None,
     parameter tree) and `optimizer` updates them.  `arrays` are the
     sample's per-part dicts on their devices.  `n_steps > 1` chains that
     many optimizer steps on the same sample, as the JAX scan does; with
-    `augment` each chained step draws a rotation, shared by the parts,
-    from a torch.Generator seeded with `seed` on the first part's device.
-    The metrics are the last step's, as tensors there."""
+    `augment` each chained step takes a rotation, shared by the parts,
+    drawn before the step from a torch.Generator seeded with `seed` on the
+    first part's device.  The metrics are the last step's, as tensors
+    there.
+
+    Where every part is on one card and the optimizer is capturable (Adam
+    on the card), a step is one replay of the CUDA graph of the sample's
+    shapes (`step.program`): forward, backward into .grad, the optimizer
+    and the metrics, with the rotations copied in; the first step of a
+    shape runs eagerly, as the warm-up, and captures it.  Its metrics are
+    the graph's own tensors, which the next step overwrites."""
     from geobignn_tpu_torch.params import tree_of
 
     cfg = loss_cfg or {}
     sd = _static_required(static_d, "make_halo_train_step")
 
-    def step(arrays: list, seed: int = 0) -> dict:
-        home = arrays[0]["xv"].device
-        gen = torch.Generator(device=home).manual_seed(seed) if augment else None
-        for _ in range(n_steps):
-            rot = None if gen is None else random_rotation_matrix(gen, cfg.get("z_only", False))
+    def body(arrays: list, rots) -> dict:
+        for i in range(n_steps):
             optimizer.zero_grad(set_to_none=True)
-            loss, s = _halo_loss(tree_of(model), arrays, sd, pool_type, cfg, rot,
-                                 compute_dtype)
+            loss, s = _halo_loss(tree_of(model), arrays, sd, pool_type, cfg,
+                                 None if rots is None else rots[i], compute_dtype)
             loss.backward()
             optimizer.step()
         metrics = dict(loss_v=s[0] / s[4], loss_f=s[1] / s[5], error_v=s[2] / s[4],
@@ -240,24 +252,50 @@ def make_halo_train_step(model, optimizer, static_d: dict | None = None,
                            + metrics["loss_f"] * cfg.get("loss_n_scale", 1.0))
         return metrics
 
+    # the gradients a capture leaves point into the graph's memory; outside
+    # it the parameters hold none (each step writes them anew)
+    program = capture.Program(body, settle=lambda: optimizer.zero_grad(set_to_none=True))
+
+    def step(arrays: list, seed: int = 0) -> dict:
+        rots = None
+        if augment:  # one (3, 3) rotation per chained step, the scan's chain
+            gen = torch.Generator(device=arrays[0]["xv"].device).manual_seed(seed)
+            rots = torch.stack([random_rotation_matrix(gen, cfg.get("z_only", False))
+                                for _ in range(n_steps)])
+        if capture.one_card(_part_devices(arrays)) and capture.capturable(optimizer):
+            return program(arrays, rots)
+        return body(arrays, rots)
+
+    step.program = program
     return step
 
 
 def make_halo_forward(model, static_d: dict | None = None, pool_type: str = "max",
                       compute_dtype=None):
     """The forward over halo parts without autograd: fwd(arrays) -> (each
-    part's vert_p, each part's norm_p).  Unshard with `unshard_predictions`."""
+    part's vert_p, each part's norm_p).  Unshard with `unshard_predictions`.
+    Where every part is on one card, one replay of the CUDA graph of the
+    sample's shapes (`fwd.program`; the first call of a shape runs eagerly
+    and captures it), whose outputs the next call overwrites."""
     from geobignn_tpu_torch.params import tree_of
 
     sd = _static_required(static_d, "make_halo_forward")
 
-    @torch.no_grad()
-    def fwd(arrays: list):
+    def body(arrays: list):
         return hm.halo_dual_gnn(
             tree_of(model), [a["xv"] for a in arrays], [a["xf"] for a in arrays],
             [a["d"] for a in arrays], sd, pool_type,
             [a["dd"] for a in arrays] if "dd" in arrays[0] else None, compute_dtype)
 
+    program = capture.Program(body)
+
+    @torch.no_grad()
+    def fwd(arrays: list):
+        if capture.one_card(_part_devices(arrays)):
+            return program(arrays)
+        return body(arrays)
+
+    fwd.program = program
     return fwd
 
 

@@ -4,9 +4,10 @@ float32 step against a float64 one (`float64_sample`, `aggregates_in`,
 `grad_agreement`, `same_branches`), a step on one device held to another's
 dynamic-pooling picks (`same_matchings`), the model's rematerialization switched off
 (`without_remat`) or measured (`heads_peak_bytes`), the eager step and
-forward in place of their CUDA graphs (`eager_steps`), and the JAX
+forward in place of their CUDA graphs (`eager_steps`), the JAX
 package's native path brought to the one this machine supports
-(`match_reference_native`).
+(`match_reference_native`), and torch's CPU threads cut to one test
+worker's share of the cores (`share_cores`).
 
 `edge_case_inputs`, made with numpy, so that the port-against-JAX tests and
 the kernels-against-plain checks hold the same cases:
@@ -28,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import os
 import time
 
 import numpy as np
@@ -399,3 +401,18 @@ def match_reference_native(jax_native, timeout: float = 300.0) -> bool:
         if not jax_native.HAS_NATIVE:
             time.sleep(0.5)
     return True
+
+
+def share_cores() -> int:
+    """Give torch's CPU kernels this process's share of the machine's cores
+    and return it: the cores over pytest-xdist's worker count
+    (PYTEST_XDIST_WORKER_COUNT), at least one; a process alone keeps them
+    all.  torch's OpenMP threads spin while they wait, so several test
+    workers each running one thread per core slow one another down by an
+    order of magnitude on the tests' small tensors.  OMP_NUM_THREADS carries
+    the share to the processes a test starts."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = max(1, (os.cpu_count() or 1) // max(workers, 1))
+    torch.set_num_threads(n)
+    os.environ["OMP_NUM_THREADS"] = str(n)
+    return n

@@ -11,8 +11,10 @@ surface of train/trainer.Trainer.
 
 The parts run on `devices` (one per part; one device may be named several
 times), on the CPU with device="cpu", else on the first `halo_parts`
-visible cards.  The steps run eagerly (a CUDA graph of the step over
-several devices is a later ROADMAP item).
+visible cards.  With every part on one card, each step and each
+evaluation forward replays one CUDA graph of its mesh's shapes
+(parallel/halo_train.py), all in one memory pool; parts on several cards,
+the CPU and testing.eager_steps() run eagerly.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from geobignn_tpu_torch import capture
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
@@ -98,6 +101,10 @@ class HaloTrainer:
         self._restored_plateau = None
         self._steps: dict = {}  # exchange schedule -> step
         self._fwds: dict = {}
+        # one stream replays the steps' and the evaluation's graphs one at a
+        # time: they share one memory pool, as the meshes' graphs would
+        # otherwise each keep a step's memory
+        self._pool = capture.Pool()
 
     # ------------------------------------------------------------------
     def _step_for(self, sample):
@@ -108,6 +115,7 @@ class HaloTrainer:
                 self.model, self.optimizer, static_d=sample.static, loss_cfg=cfg.loss_cfg(),
                 pool_type=cfg.pool_type, augment=cfg.augment, n_steps=1,
                 compute_dtype=self._compute_dtype)
+            self._steps[key].program.pool = self._pool
         return self._steps[key]
 
     def _fwd_for(self, sample):
@@ -116,6 +124,7 @@ class HaloTrainer:
             self._fwds[key] = ht.make_halo_forward(
                 self.model, static_d=sample.static, pool_type=self.cfg.pool_type,
                 compute_dtype=self._compute_dtype)
+            self._fwds[key].program.pool = self._pool
         return self._fwds[key]
 
     # ------------------------------------------------------------------
@@ -230,6 +239,7 @@ class HaloTrainer:
         self.model.load_state_dict(state)
         if with_opt and opt_state is not None:
             optim.load_state(self.optimizer, opt_state)
+            self._steps.clear()  # their graphs hold the replaced state tensors
         self.epoch = int(scalars.get("epoch", -1)) + 1
         self.best_error = float(scalars.get("best_error", float("inf")))
         self._restored_plateau = scalars.get("plateau")

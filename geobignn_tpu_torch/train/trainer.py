@@ -41,9 +41,12 @@ Several devices: with `dcn * dp * gp > 1` each epoch runs the step of
 parallel/api.py over a (dcn, dp, gp) grid of devices (`devices`, or every
 entry on the CPU with device="cpu", else the first visible cards) on
 global batches of dcn * dp * batch_size samples, a short last batch filled
-by wrapping around the epoch's order, as the JAX trainer does; the step is
-eager.  In a process group of dcn processes (api.distributed_init) each
-process holds its (dp, gp) grid and the step adds the gradients over the
+by wrapping around the epoch's order, as the JAX trainer does.  With the
+whole grid on one card in one process (dcn included) and Adam, a step is
+one replay of a CUDA graph per batch shape (api.make_sharded_train_step);
+a grid over several cards, the CPU, SGD and RMSprop run eagerly.  In a
+process group of dcn processes (api.distributed_init) each process holds
+its (dp, gp) grid and the step, eager, adds the gradients over the
 group.  `halo_parts > 1` routes `train()` to train/halo_trainer.py.
 """
 
@@ -150,7 +153,11 @@ class Trainer:
         self.best_error = float("inf")
         self._restored_plateau = None
         self._cache: dict = {}
-        self._graphs: dict = {}  # signature of a sample -> capture.Graph of its step
+        # fused_step: one CUDA graph of the step per padded shape; the
+        # gradients a capture leaves point into the graph's memory, so
+        # outside it the parameters hold none, as after an eager step
+        self._program = capture.Program(
+            self._captured_step, settle=lambda: self.optimizer.zero_grad(set_to_none=True))
         # the epoch's metric sums on the device (a captured step adds into them)
         self._sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
         self._sharded_step = None
@@ -216,16 +223,18 @@ class Trainer:
 
     def _captured_step(self, sample, rot) -> None:
         """What the graph of a step holds: forward, backward (into .grad,
-        which is None at the capture, so each replay writes it anew), Adam
-        and the metric sums."""
+        set to None first, so that the capture makes it and each replay
+        writes it anew), Adam and the metric sums."""
+        self.optimizer.zero_grad(set_to_none=True)
         self._add_metrics(self._backward(sample, rot))
         self.optimizer.step()
 
     def one_dispatch(self) -> bool:
         """Whether a step runs as one CUDA graph: on the card, one sample
-        per optimizer step, Adam, and not under testing.eager_steps()."""
-        return (self.device.type == "cuda" and self.cfg.batch_size == 1
-                and isinstance(self.optimizer, torch.optim.Adam) and not capture.EAGER)
+        per optimizer step, Adam (capturable there), and not under
+        testing.eager_steps()."""
+        return (self.cfg.batch_size == 1 and capture.one_card([self.device])
+                and capture.capturable(self.optimizer))
 
     def fused_step(self, sample, seed: int) -> None:
         """One optimizer step on one sample as a replay of its shape's CUDA
@@ -234,20 +243,7 @@ class Trainer:
         eager step draws it, and copied in.  The first step of a shape runs
         eagerly on a side stream — the capture's warm-up — and then
         captures the graph; a failed capture raises."""
-        rot = self._rotation(seed)
-        graph = self._graphs.get(capture.signature((sample, rot)))
-        if graph is not None:
-            graph(sample, rot)
-            return
-        self.optimizer.zero_grad(set_to_none=True)
-        with capture.side_stream():
-            self._add_metrics(self._backward(sample, rot))
-            self._apply(1)
-        graph = capture.Graph(self._captured_step, sample, rot)
-        self._graphs[graph.key] = graph
-        # the graph goes on writing the gradients it captured; outside it
-        # the parameters hold none, as after an eager step
-        self.optimizer.zero_grad(set_to_none=True)
+        self._program(sample, self._rotation(seed))
 
     def _run_epoch_sharded(self, rng: np.random.Generator, logger=None):
         """One epoch on the (dcn, dp, gp) grid: global batches of dcn * dp *
@@ -387,7 +383,9 @@ class Trainer:
         self.model.load_state_dict(state)
         if with_opt and opt_state is not None:
             optim.load_state(self.optimizer, opt_state)
-            self._graphs.clear()  # they hold the replaced state tensors
+            self._program.graphs.clear()  # they hold the replaced state tensors
+            if self._sharded_step is not None:
+                self._sharded_step.program.graphs.clear()
         self.epoch = int(scalars.get("epoch", -1)) + 1
         self.best_error = float(scalars.get("best_error", float("inf")))
         self._restored_plateau = scalars.get("plateau")

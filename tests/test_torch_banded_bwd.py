@@ -34,6 +34,8 @@ from geobignn_tpu_torch.structs import round_up
 from geobignn_tpu import native as jnative
 from geobignn_tpu_torch import testing
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

@@ -27,6 +27,8 @@ from geobignn_tpu_torch.data import builder as tbuilder
 from geobignn_tpu_torch.data import synth as tsynth
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

@@ -3,8 +3,10 @@
 
 On the CPU: the signature a graph is keyed on (equal for the patches of one
 plan, different for another plan), the static copies, the one switch to
-the eager path (`testing.eager_steps`), which the CPU never leaves; and the
-learning rate held as a tensor, as Adam holds it on the card, which
+the eager path (`testing.eager_steps`), which the CPU never leaves; the
+multi-device trees (a halo sample's per-part dicts) and the routing of a
+multi-device program to one graph or to the eager path (`one_card`); and
+the learning rate held as a tensor, as Adam holds it on the card, which
 `set_lr` writes in place and a checkpoint round trip keeps.  The graphs
 themselves run in tests/test_torch_cuda.py, on the card.
 """
@@ -22,6 +24,8 @@ from geobignn_tpu_torch.data import dataset, synth
 from geobignn_tpu_torch.train import checkpoint as ckpt
 from geobignn_tpu_torch.train import optim
 from geobignn_tpu_torch.train.trainer import Trainer
+
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -50,6 +54,52 @@ def test_signature_and_static_copy():
     pairs = list(zip(capture.tensors(copy), capture.tensors((a, None))))
     assert len(pairs) > 50 and copy[1] is None
     assert all(x.data_ptr() != y.data_ptr() and torch.equal(x, y) for x, y in pairs)
+
+
+def test_per_part_dicts_are_trees():
+    """A halo sample's arrays, a list of per-part dicts: tensors in key
+    order, a signature keyed on the keys, shapes and devices, and a mapped
+    copy of the same structure."""
+    from geobignn_tpu_torch.parallel import halo_train as ht
+
+    clean = synth.icosphere(2)
+    sample = ht.build_halo_train_sample(synth.add_noise(clean, 0.2, seed=0), clean,
+                                        Config().build_config(), 2, granularity=16)
+    arrays = sample.arrays
+    flat = capture.tensors(arrays)
+    assert len(flat) > 40 and flat[0] is capture.tensors(arrays[0]["d"])[0]
+    assert flat[len(capture.tensors(arrays[0])) - 1] is arrays[0]["yv"]  # "yv" sorts last
+    shuffled = [dict(reversed(list(a.items()))) for a in arrays]  # key order, not insertion
+    assert [t.data_ptr() for t in capture.tensors(shuffled)] == [t.data_ptr() for t in flat]
+    assert capture.signature(shuffled) == capture.signature(arrays)
+    assert capture.signature(arrays) != capture.signature(arrays[:1])
+    fewer = [dict(a) for a in arrays]
+    del fewer[0]["mv"]
+    assert capture.signature(fewer) != capture.signature(arrays)
+    moved = capture.signature([{k: v for k, v in a.items()} for a in sample.to(
+        [torch.device("meta")] * 2).arrays])
+    assert moved != capture.signature(arrays)  # a plan on other devices captures anew
+    copy = capture.static_copy(arrays)
+    assert isinstance(copy, list) and set(copy[1]) == set(arrays[1])
+    assert all(x.data_ptr() != y.data_ptr() and torch.equal(x, y)
+               for x, y in zip(capture.tensors(copy), flat))
+
+
+def test_one_card_routes_multi_device_programs():
+    """One graph only where every part or grid entry names the same CUDA
+    device in a lone process and eager_steps() is not open; the CPU, two
+    cards, or a mixed list run eagerly."""
+    card = torch.device("cuda", 0)
+    assert capture.one_card([card] * 4) and capture.one_card(["cuda:0", "cuda:0"])
+    assert capture.one_card([card])
+    assert not capture.one_card([card, torch.device("cuda", 1)])
+    assert not capture.one_card(["cpu"] * 2) and not capture.one_card([card, "cpu"])
+    with testing.eager_steps():
+        assert not capture.one_card([card] * 2)
+    model = torch.nn.Linear(2, 2)
+    assert not capture.capturable(torch.optim.SGD(model.parameters(), lr=0.1))
+    assert not capture.capturable(torch.optim.Adam(model.parameters()))
+    assert capture.capturable(torch.optim.Adam(model.parameters(), capturable=True))
 
 
 def test_eager_switch_and_the_cpu_stays_eager():

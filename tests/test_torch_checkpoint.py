@@ -29,6 +29,9 @@ from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.train import checkpoint as ckpt
 from geobignn_tpu_torch.train import optim
+from geobignn_tpu_torch.testing import share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 
 # hypothesis keeps its example database and caches out of the checkout

@@ -25,7 +25,9 @@ from geobignn_tpu_torch import graphs
 from geobignn_tpu_torch.data import synth
 from geobignn_tpu_torch.ops import banded, banded_cuda, blocksparse
 from geobignn_tpu_torch.structs import round_up
-from geobignn_tpu_torch.testing import edge_case_inputs
+from geobignn_tpu_torch.testing import edge_case_inputs, share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 
 @pytest.fixture
@@ -422,7 +424,7 @@ def test_graphed_training_matches_eager_across_an_lr_change(cuda_device):
     with eager_steps():
         eager = Trainer(cfg, ds, None, device=cuda_device)
         eager.fit()
-    assert len(graphed._graphs) == 1 and not eager._graphs
+    assert len(graphed._program.graphs) == 1 and not eager._program.graphs
     for a, b in zip(graphed.model.parameters(), eager.model.parameters()):
         assert torch.equal(a, b)
         for k in ("exp_avg", "exp_avg_sq", "step"):
@@ -447,7 +449,7 @@ def test_a_replayed_step_reads_the_learning_rate_set_after_its_capture(cuda_devi
     optim.set_lr(tr.optimizer, 1e-2)
     tr.fused_step(sample, 3)
     assert not all(torch.equal(a, b) for a, b in zip(before, tr.model.parameters()))
-    assert len(tr._graphs) == 1
+    assert len(tr._program.graphs) == 1
 
 
 @pytest.mark.cuda
@@ -485,7 +487,7 @@ def test_graphed_forward_matches_eager_and_counts_its_launches(cuda_device):
                 torch.cuda.synchronize()
         counts[mode] = (out, dict(banded_cuda.LAUNCHES),
                         pts.aggregate_launches(pts.device_kernels(prof)))
-    graph = pred._graph
+    (graph,) = pred._program.graphs.values()
     eager = {k: v for k, v in counts["eager"][1].items() if v}
     assert eager and graph.replays == n - 1
     assert {k: n * v for k, v in graph.launches.items() if v} == eager
@@ -573,7 +575,7 @@ def test_graphed_dynamic_training_matches_eager(cuda_device):
     with eager_steps():
         eager = Trainer(cfg, ds, None, device=cuda_device)
         eager.fit()
-    assert len(graphed._graphs) == 1 and not eager._graphs
+    assert len(graphed._program.graphs) == 1 and not eager._program.graphs
     for (name, a), b in zip(graphed.model.named_parameters(), eager.model.parameters()):
         assert torch.equal(a, b), name
         for k in ("exp_avg", "exp_avg_sq", "step"):
@@ -598,3 +600,150 @@ def test_pinned_prefetch_gives_the_synchronous_samples(cuda_device):
         want = ds.get(i).to(cuda_device)
         for a, b in zip(tensors(s), tensors(want)):
             assert a.is_cuda and torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the multi-device programs as CUDA graphs, every part or grid entry on one
+# card
+# --------------------------------------------------------------------------
+
+def _halo_pairs():
+    clean = synth.icosphere(3)
+    return [(synth.add_noise(clean, 0.2, seed=s), clean) for s in (0, 1)]
+
+
+@pytest.mark.cuda
+def test_graphed_halo_forward_matches_eager(cuda_device):
+    """Predictor.predict_mesh_halo over 2 banded parts on one card: the
+    first call runs eagerly and captures the forward, the second replays
+    it; both equal the eager forward bit for bit, and the capture recorded
+    the parts' #1/#2 launches."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.infer.predict import Predictor
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.testing import eager_steps
+
+    state = DualGNN(device="cpu", seed=0).state_dict()
+    pred = Predictor(Config(), state, device=cuda_device)
+    mesh, devs = _halo_pairs()[0][0], [cuda_device] * 2
+    first = pred.predict_mesh_halo(mesh, 2, banded=True, devices=devs)
+    replayed = pred.predict_mesh_halo(mesh, 2, banded=True, devices=devs)
+    (graph,) = pred._halo[1].program.graphs.values()
+    assert graph.replays == 1 and sum(graph.launches.values()) > 0
+    with eager_steps():
+        eager = pred.predict_mesh_halo(mesh, 2, banded=True, devices=devs)
+    for a, b, c in zip(first, replayed, eager):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, c)
+
+
+def _same_training(a, b):
+    """Parameters and Adam's moments bit-equal."""
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(a.optimizer.state[p][k], b.optimizer.state[q][k]), name
+
+
+def _metrics(hist):
+    """The epochs' metrics without the host clock's rates."""
+    return [{k: v for k, v in m.items() if not k.endswith("_per_s") and "per_s_" not in k}
+            for m in hist]
+
+
+@pytest.mark.cuda
+def test_graphed_halo_steps_match_eager(cuda_device):
+    """HaloTrainer.fit over 2 banded parts on one card: 3 epochs of one mesh
+    (rotation on, the learning rate halved each epoch) and the evaluation
+    of another replay one graph each after their warm-ups; the parameters,
+    Adam's moments and every epoch's train and eval metrics are bit-equal
+    to the eager run's."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train.halo_trainer import HaloTrainer
+
+    cfg = Config(halo_parts=2, halo_banded=True, max_epoch=3, seed=0, lr_sch="exp",
+                 lr_decay=0.5)
+    pairs = _halo_pairs()
+    runs = {}
+    for mode in ("graphed", "eager"):
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            tr = HaloTrainer(cfg, pairs[:1], pairs[1:], devices=[cuda_device] * 2)
+            hist = []
+            tr.fit(on_epoch=lambda t, m, e: hist.append(dict(m, **{"eval_" + k: v
+                                                                   for k, v in e.items()})))
+        runs[mode] = (tr, hist)
+    (g, g_hist), (e, e_hist) = runs["graphed"], runs["eager"]
+    (step,), (fwd,) = g._steps.values(), g._fwds.values()
+    assert [gr.replays for gr in step.program.graphs.values()] == [2]
+    assert [gr.replays for gr in fwd.program.graphs.values()] == [2]
+    assert not any(s.program.graphs for s in e._steps.values())
+    assert _metrics(g_hist) == _metrics(e_hist)
+    _same_training(g, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_cfg", [{}, dict(loss_v="CD", loss_n="sided")],
+                         ids=["L1", "chamfer-sided"])
+def test_graphed_chained_halo_step_matches_eager(loss_cfg, cuda_device):
+    """make_halo_train_step(n_steps=2, augment=True) over 2 parts on one
+    card, with the default losses and with the chamfer and sided losses
+    (the parts' rows gathered on the first part's device): 3 calls (the
+    warm-up, then two replays of one graph, each with its two rotations
+    copied in) leave the parameters and Adam's moments bit-equal to 3
+    eager calls."""
+    import dataclasses
+
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.parallel import halo_train as ht
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train import optim
+
+    m_n, m_o = _halo_pairs()[0]
+    bc = dataclasses.replace(Config().build_config(), reorder=False)
+    sample = ht.build_halo_train_sample(m_n, m_o, bc, 2, banded=True,
+                                        devices=[cuda_device] * 2)
+    runs = []
+    for mode in ("graphed", "eager"):
+        model = DualGNN(device=cuda_device, seed=3)
+        opt = optim.make_optimizer(Config(), model.parameters())
+        step = ht.make_halo_train_step(model, opt, sample.static, loss_cfg, augment=True,
+                                       n_steps=2)
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            losses = [float(step(sample.arrays, seed)["loss"]) for seed in (1, 2, 3)]
+        runs.append((model, opt, step, losses))
+    (gm, go, gs, gl), (em, eo, es, el) = runs
+    assert [gr.replays for gr in gs.program.graphs.values()] == [2] and not es.program.graphs
+    assert gl == el
+    for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(go.state[p][k], eo.state[q][k]), name
+
+
+@pytest.mark.cuda
+def test_graphed_dp_steps_match_eager(cuda_device):
+    """Trainer(Config(dp=2)) on [card] * 2: 3 epochs (rotation on, the
+    learning rate halved each epoch) replay one graph of the sharded step
+    after its warm-up; the parameters, Adam's moments and the epochs'
+    metrics are bit-equal to the eager steps'."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    ds = _small_train_set()
+    cfg = Config(dp=2, seed=0, max_epoch=3, lr_sch="exp", lr_decay=0.5)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            tr = Trainer(cfg, ds, None, devices=[cuda_device] * 2)
+            hist = []
+            tr.fit(on_epoch=lambda t, m, e: hist.append(m))
+        runs[mode] = (tr, hist)
+    (g, g_hist), (e, e_hist) = runs["graphed"], runs["eager"]
+    steps = 3 * -(-len(ds) // 2)
+    assert [gr.replays for gr in g._sharded_step.program.graphs.values()] == [steps - 1]
+    assert not e._sharded_step.program.graphs
+    assert _metrics(g_hist) == _metrics(e_hist)
+    _same_training(g, e)

@@ -14,7 +14,9 @@ the multi-process form over torch.distributed.
     test workers cannot collide on a port), each holding a (1, 1) grid,
     take the same step as one process holding the (2, 1, 1) grid: the
     gradients and metrics within 1e-6 relative (plus 1e-12 for the convs'
-    `u`, whose gradient cancels to 1e-14 here, tests/test_torch_grads.py).
+    `u`, whose gradient cancels to 1e-14 here, tests/test_torch_grads.py);
+    inside the group a step stays eager even on one card
+    (`capture.one_card` is false).
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ from geobignn_tpu_torch import testing
 from geobignn_tpu_torch.data import builder, synth
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.parallel import api
+
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -119,11 +123,14 @@ def test_distributed_init_is_a_no_op_for_one_process():
 
 _WORKER = r"""
 import sys, torch
+from geobignn_tpu_torch import capture
 from geobignn_tpu_torch.data import builder, synth
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.parallel import api
 store, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 api.distributed_init(store, num_processes=2, process_id=rank, device="cpu")
+# in a group of two processes a step stays eager, even with its grid on one card
+assert capture.one_card([torch.device("cuda", 0)] * 2) is False
 meshes = [(synth.add_noise(synth.icosphere(1), 0.2, seed=s), synth.icosphere(1)) for s in (1, 2)]
 cfg = builder.BuildConfig(granularity=32, reorder=True)
 plan = builder.plan_for(*builder.build_raw(*meshes[0], cfg)[:2], 32)
@@ -167,7 +174,12 @@ def test_two_processes_equal_one_process_dcn_step(tmp_path):
     model = DualGNN(device="cpu", seed=3)
     step = api.make_sharded_train_step(model, torch.optim.SGD(model.parameters(), lr=1.0),
                                        api.make_mesh(1, 1, [CPU] * 2, dcn=2), augment=True)
-    metrics = step(batch, 7)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the two processes (OMP_NUM_THREADS=1): the same sums
+    try:
+        metrics = step(batch, 7)
+    finally:
+        torch.set_num_threads(threads)
     for k, v in metrics.items():
         assert abs(float(v) - got["metrics"][k]) <= 1e-6 * abs(float(v)), k
     for name, prm in model.named_parameters():

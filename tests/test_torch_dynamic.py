@@ -38,6 +38,8 @@ from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic, fill_missing_grads
 from geobignn_tpu_torch.train import checkpoint as ckpt
 from geobignn_tpu_torch.train.trainer import _metrics_of
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 POOL_LEAVES = ("att_l", "att_r", "lin")
 
 

@@ -39,6 +39,8 @@ from geobignn_tpu_torch.models.fusion import DualFusionLayer
 from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.train.trainer import _metrics_of
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

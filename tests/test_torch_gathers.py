@@ -29,6 +29,9 @@ from geobignn_tpu.ops import table as jtable
 from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.ops import table as ttable
 from geobignn_tpu_torch.structs import round_up
+from geobignn_tpu_torch.testing import share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 TOL = 1e-5
 C = 5

@@ -40,6 +40,8 @@ from geobignn_tpu_torch.parallel import halo_train as ht
 from geobignn_tpu_torch.parallel import partition as hp
 from geobignn_tpu_torch.pool.hierarchy import build_hierarchy
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 CPU = torch.device("cpu")
 
 

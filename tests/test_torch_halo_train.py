@@ -3,9 +3,10 @@
 1e-4 of its max|change|, see `_assert_params_close`), `HaloTrainer`'s
 first epoch (1e-4), and the trainer's surface (fit, eval, checkpoints,
 resume, `train()` routing, the surface-to-volume warning) on the CPU, 2
-and 4 parts.  Augmentation is off
-in the parity runs: the two packages draw rotations from different
-generators."""
+and 4 parts.  Augmentation is off in the parity runs but one, where the
+two packages draw rotations from different generators: there the JAX
+step is handed the rotations the port draws before its step, one per
+chained step."""
 
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.parallel import halo_model as hm
 from geobignn_tpu_torch.parallel import halo_train as ht
 from geobignn_tpu_torch.train.halo_trainer import HaloTrainer
+
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -85,6 +88,49 @@ def test_halo_train_step_matches_jax():
     _assert_params_close(model, jax.tree.map(np.asarray, p1), before, 1e-3)
     with pytest.raises(ValueError, match="static_d"):
         ht.make_halo_train_step(model, opt, None)  # an empty schedule is refused
+
+
+def test_chained_halo_step_rotations_drawn_before_the_step_match_jax(monkeypatch):
+    """n_steps=2 with augmentation: the port draws both chained steps'
+    rotations from the step's seed before the step (as the CUDA graph of
+    the step takes them in); JAX's scan, given the same two rotations for
+    its two keys, ends on the same metrics (1e-5) and parameters (1e-4 of
+    each tensor's max|change| and an ulp, as `_assert_params_close`).  SGD:
+    Adam's second step would carry the first step's rounding, amplified
+    where a gradient is near eps."""
+    from geobignn_tpu_torch.data.augment import random_rotation_matrix
+
+    m_n, m_o = _pairs(1)[0]
+    s = ht.build_halo_train_sample(m_n, m_o, builder.BuildConfig(granularity=16), 2, seed=1)
+    js = jht.build_halo_train_sample(m_n, m_o, JBuildConfig(granularity=16), 2, seed=1)
+    model = DualGNN(device="cpu", seed=11)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    metrics = ht.make_halo_train_step(model, opt, s.static, augment=True, n_steps=2)(
+        s.arrays, seed=7)
+
+    gen = torch.Generator().manual_seed(7)
+    rots = jnp.asarray(np.stack([random_rotation_matrix(gen).numpy() for _ in range(2)]))
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)
+
+    def port_rotation(key, z_only=False):  # the scan's k-th key -> the port's k-th draw
+        return rots[jnp.argmax(jnp.all(keys == key, axis=1))]
+
+    monkeypatch.setattr(jht, "random_rotation_matrix", port_rotation)
+    tx = optax.sgd(1e-2)
+    p0 = pm.to_jax_params(before)["params"]
+    step = jht.make_halo_train_step(tx, jmake_mesh(1, 2), js.arrays, static_d=js.static,
+                                    augment=True, n_steps=2)
+    p1, _, jm = step(p0, tx.init(p0), jax.tree.map(jnp.asarray, js.arrays),
+                     jax.random.PRNGKey(3))
+    for k in ("loss", "loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f"):
+        assert abs(float(metrics[k]) - float(jm[k])) <= 1e-5 * abs(float(jm[k])), k
+    jflat = pm.from_jax_params(jax.tree.map(np.asarray, p1))
+    ulp = torch.finfo(torch.float32).eps
+    for name, prm in model.named_parameters():
+        got, want = prm.detach(), jflat[name]
+        step = (want - before[name]).abs().max()
+        assert ((got - want).abs() <= 1e-4 * step + ulp * want.abs()).all(), name
 
 
 def test_halo_trainer_first_epoch_matches_jax():

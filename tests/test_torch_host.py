@@ -32,6 +32,8 @@ from geobignn_tpu_torch.data import synth as tsynth
 from geobignn_tpu_torch.ops import banded as tbanded
 from geobignn_tpu_torch import testing
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

@@ -11,6 +11,10 @@ import sys
 import pytest
 import torch
 
+from geobignn_tpu_torch.testing import share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""

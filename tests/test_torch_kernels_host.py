@@ -16,6 +16,9 @@ import pytest
 import torch
 
 from geobignn_tpu_torch.ops import banded_cuda, blocksparse
+from geobignn_tpu_torch.testing import share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "geobignn_tpu_torch", "csrc")

@@ -42,6 +42,8 @@ from geobignn_tpu_torch.data import builder, synth
 from geobignn_tpu_torch.models import legacy
 from geobignn_tpu_torch.ops import gat, gcn
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 MODELS = {  # (port class, JAX class, input channels of the facet features)
     "FacetAttentionGNN": (legacy.FacetAttentionGNN, jlegacy.FacetAttentionGNN, slice(3, 6)),
     "FGCNet": (legacy.FGCNet, jlegacy.FGCNet, slice(0, 6)),

@@ -23,6 +23,9 @@ from geobignn_tpu.ops import matching as jmatching
 from geobignn_tpu.pool import edge_weight as jew
 from geobignn_tpu_torch.ops import coalesce, matching
 from geobignn_tpu_torch.pool import edge_weight as ew
+from geobignn_tpu_torch.testing import share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 
 def _graph(sub: int = 2, seed: int = 0, pad_nodes: int = 5, pad_edges: int = 9,

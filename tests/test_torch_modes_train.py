@@ -26,6 +26,8 @@ from geobignn_tpu_torch.data import builder, dataset, synth
 from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic
 from geobignn_tpu_torch.train.trainer import Trainer
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

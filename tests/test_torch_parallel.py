@@ -22,7 +22,10 @@ port's dp and gp steps to the port's float64 step with the float64 step's
 branches replayed (`testing.same_branches`, each held branch a near-tie
 within TIE_TOL), within F32_GRAD_TOL (2e-4); and the port's dp step to the
 mean of JAX's per-sample gradients with the sample a constant of the
-program, 1e-4.
+program, 1e-4.  With augmentation the port draws each sample's rotation
+before the step (the CUDA graph of the step takes them in); its dp step is
+held to the mean of JAX's per-sample gradients of the samples rotated by
+those rotations, 1e-4.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import builder, dataset
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.parallel import api
+
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 CPU = torch.device("cpu")
 
@@ -193,6 +198,32 @@ def test_dp_step_matches_jax(batch):
         want = jflat[name]
         assert (prm.grad - want).abs().max() <= 1e-4 * want.abs().max(), name
         assert torch.equal(prm.detach(), before[name] - prm.grad), name
+
+
+def test_dp_step_rotations_drawn_before_the_step_match_jax(batch_unordered):
+    """dp=2 with augmentation: each replica's sample rotated by the rotation
+    the port draws before the step from (seed, replica, index); the applied
+    gradient against the mean of JAX's per-sample gradients of the same
+    rotated samples (COO convs on both sides, reorder=False; each sample a
+    constant of its program, as test_reorder_false_dp_step_matches_jax),
+    1e-4 of max|g| per tensor."""
+    from geobignn_tpu.data import augment as jaug
+    from geobignn_tpu_torch.data.augment import random_rotation_matrix
+
+    samples, jsamples = batch_unordered
+    model = DualGNN(device="cpu", seed=0)
+    params = {"params": pm.to_jax_params(model.state_dict())["params"]}
+    step = api.make_sharded_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                       api.make_mesh(2, 1, [CPU] * 2), augment=True)
+    step(api.stack_samples(samples), 5)
+    rots = [jnp.asarray(random_rotation_matrix(torch.Generator().manual_seed(
+        api._rotation_seed(5, r, 0))).numpy()) for r in range(2)]
+    g = [jax.jit(jax.grad(lambda p, s=s, r=r: jdual_loss(
+        JDualGNN(), p, jaug.rotate_sample(s, r), {})[0]))(params)
+        for s, r in zip(jsamples, rots)]
+    want = pm.from_jax_params(jax.tree.map(lambda a, b: np.asarray((a + b) / 2), *g))
+    err = _rel_errs({k: p.grad for k, p in model.named_parameters()}, want)
+    assert max(err.values()) <= 1e-4, sorted(err.items(), key=lambda kv: -kv[1])[:3]
 
 
 def test_gp_forward_matches_jax(batch):

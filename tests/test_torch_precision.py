@@ -49,6 +49,8 @@ from geobignn_tpu_torch.ops import blocksparse as tbs
 from geobignn_tpu_torch.ops import table as tbl
 from geobignn_tpu_torch.train.trainer import _metrics_of
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

@@ -29,6 +29,8 @@ from geobignn_tpu_torch.data.builder import BuildConfig
 from geobignn_tpu_torch.data.prefetch import device_iter, prefetch_iter
 from geobignn_tpu_torch.train.trainer import Trainer
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

@@ -28,6 +28,8 @@ from geobignn_tpu_torch.data import dataset as tdataset
 from geobignn_tpu_torch.data import synth as tsynth
 from geobignn_tpu_torch.train import profiling, roofline
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 JAX_CPU_PEAK = 197e12  # geobignn_tpu.train.roofline.chip_peak_flops' default
 
 

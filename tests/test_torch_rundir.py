@@ -42,6 +42,8 @@ from geobignn_tpu_torch.train.trainer import Trainer, train
 from geobignn_tpu import native as jnative
 from geobignn_tpu_torch import testing
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():

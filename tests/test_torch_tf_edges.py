@@ -29,7 +29,9 @@ from geobignn_tpu.ops import banded_pallas
 from geobignn_tpu.ops import blocksparse as jbs
 from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.ops import blocksparse as tbs
-from geobignn_tpu_torch.testing import edge_case_inputs
+from geobignn_tpu_torch.testing import edge_case_inputs, share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 WIDTHS = pytest.mark.parametrize(

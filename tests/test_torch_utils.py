@@ -25,6 +25,9 @@ from geobignn_tpu import utils as jutils
 from geobignn_tpu.models import losses as jlosses
 from geobignn_tpu_torch import utils
 from geobignn_tpu_torch.models import losses
+from geobignn_tpu_torch.testing import share_cores
+
+share_cores()  # torch's CPU threads: this test worker's share of the cores
 
 
 def _rot_z(deg):

@@ -33,6 +33,8 @@ from geobignn_tpu_torch import graphs, testing, viz, viz3d
 from geobignn_tpu_torch.infer.gt_transfer import process_gt_transfer
 from geobignn_tpu_torch.pool.hierarchy import build_hierarchy
 
+testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_native():
