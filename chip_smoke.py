@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (geobignn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the phases below
+    python3 chip_smoke.py --large    # the 1,310,720-face mesh (see the end)
 
 Phases, each printing its lines; any failure raises and the script exits
 non-zero without the final result line:
@@ -96,6 +97,23 @@ non-zero without the final result line:
      replays profiled, the device running 3 times the launches the graph
      recorded and the wrappers counting none; kernels #1-#4 at that N
      against their plain versions on the step's inputs;
+ 7c. [large], bench.py's `large` field: add_noise(icosphere(7), 0.2,
+     seed=0), 327,680 faces, built whole as bench.py builds it (in a
+     worker process, beside phases 15-17) into one
+     batch-1 union sample (164,096 vertex and 327,936 facet rows; five of
+     six levels a 256-row band with a boundary sub-band beside it, the
+     coarsest vertex level a 384-row band), Config(seed=0,
+     granularity=256), float32 activations, bf16 heads (2 facet-head row
+     chunks, 1 vertex-head chunk), Adam at 1e-3, through Trainer.fused_step:
+     3 steps run eagerly (recorded) against 3 graphed from the same start,
+     parameters, Adam's moments and metric sums bit-equal; the eager
+     step's peak memory and the graph pool's bytes; 20 graphed steps timed
+     (median, min, max), edges/s, mfu_pct; 3 replays counted by kernel
+     name (the capture's launches a step equal one a conv plus one for
+     each conv of a level with a sub-band) and profiled (busy share); the
+     step graphed and eager (_graph_and_eager); every distinct #1-#4 call
+     of the step against its plain version (`[large-kernel]` lines); the
+     forward against device="cpu" (POS_TOL_MEL / NORMAL_TOL);
   8. the run-directory path, through the entry points a user calls, at the
      default model's full width (Config() defaults, sub_size 20000), in a
      temp directory: a reference-layout corpus (Synthetic/{train,test}/
@@ -238,9 +256,25 @@ non-zero without the final result line:
      (a profile, by kernel name: each launch runs one row_walk_kernel,
      whose template arguments name the aggregate): the forward ones from the
      two served meshes and the halo mesh, the backward ones from
-     Trainer.fit, and both from the counted runs of phases 11-14, 16 and
-     18; nearest's is its wrapper's count in the evaluation and in [viz],
+     Trainer.fit, and both from the counted runs of phases 7c, 11-14, 16
+     and 18 (an aggregate's times sum the 20,480-face paths' calls: the
+     large shapes have their `[large-kernel]` lines); nearest's is its wrapper's count in the evaluation and in [viz],
      which no graph holds.
+
+--large runs, after the build, the same [large] step on the 1,310,720-face
+add_noise(icosphere(8), 0.2, seed=0) of examples/run_1m.py (every level a
+band with a sub-band; 4 vertex-head and 8 facet-head row chunks) under
+Config(precision="bfloat16"), as the JAX package runs it, then under
+float32 activations (each what [large] does: 3 steps eager against 3
+graphed, bit-equal; timed, counted, peak memory; graphed against eager;
+every #1-#4 call against its plain version; the forward against the CPU;
+`[large-8-bf16]`, `[large-8]` lines), then serves the 327,680-face and the 1,310,720-face meshes through
+predict_dir_body (patches of sub_size faces, one graph of the merged plan,
+60 updates, the .obj written) and scores each with eval_denoising_result
+on the card (#7 at the mesh's vertex count, held on those points against
+its plain version, a `[kernel]` line): seconds a mesh, its host
+build and its device kernels apart (`[large-serve-7]`, `[large-serve-8]`);
+it ends with the same result line.
 
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
 max|out| (both round the same operands to bf16, but a D summed in another
@@ -530,10 +564,12 @@ def _recording(captured, backward=False):
             name = prefix + FWD[tf] + ("_bwd" if backward else "")
             key = (name, x.shape[0], m.shape[1], x.shape[1], w.shape[2], m.shape[2])
             if key not in captured:  # cloned once: a call being captured into
-                # a CUDA graph comes after its warm-up's and clones nothing
+                # a CUDA graph comes after its warm-up's and clones nothing;
+                # r, p, x and w as the kernel takes them, in float32 (bf16
+                # activations are upcast inside the wrapper)
                 captured[key] = {
-                    "args": [t.detach().clone() for t in (r, p, x, w, m)
-                             + ((rest[0],) if prefix else ())],
+                    "args": [t.detach().float().clone() for t in (r, p, x, w)]
+                            + [t.detach().clone() for t in (m,) + ((rest[0],) if prefix else ())],
                     "cd": kw.get("compute_dtype", rest[-1] if rest and not
                                  torch.is_tensor(rest[-1]) else torch.bfloat16),
                     "calls": 0}
@@ -809,9 +845,10 @@ def check_edge_cases():
                   + f" (tol {BF16_TOL} / {F32_TOL})")
 
 
-def check_forward(key, ent, reps=20):
+def check_forward(key, ent, reps=20, tag="kernel"):
     """One forward kernel against its plain version on the recorded inputs:
-    compute dtype of the path and float32; timed; with its bound."""
+    compute dtype of the path and float32; timed; with its bound; printed
+    as a `[tag]` line."""
     import torch
 
     name, args, cd = key[0], ent["args"], ent["cd"]
@@ -839,14 +876,15 @@ def check_forward(key, ent, reps=20):
                rel_err=err / scale, rel_err_f32=err32, ms=ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by, dense_bound_ms=dense_bound,
                bytes=byts, ops=ops, dense_ops=dense, parts_ms=parts)
-    print("[kernel] " + json.dumps(row))
+    print(f"[{tag}] " + json.dumps(row))
     assert err <= BF16_TOL * scale, row
     assert err32 <= F32_TOL, row
     return row
 
 
-def check_backward(key, ent, gen):
-    """One backward kernel against its plain backward, per cotangent."""
+def check_backward(key, ent, gen, reps=10, tag="kernel-bwd"):
+    """One backward kernel against its plain backward, per cotangent,
+    timed over `reps` calls; printed as a `[tag]` line."""
     import torch
 
     name, cd = key[0], ent["cd"]
@@ -863,7 +901,7 @@ def check_backward(key, ent, gen):
         rel = [a / max(float(r_.abs().max()), 1e-30) for a, r_ in zip(abs_err, ref)]
         res[dt] = (max(abs_err), max(rel))
         del got, ref
-    ms = _cuda_ms(lambda: kernel(*args, compute_dtype=cd), 10)
+    ms = _cuda_ms(lambda: kernel(*args, compute_dtype=cd), reps)
     plain_ms = _cuda_ms(lambda: plain(*args, compute_dtype=cd), 3)
     parts = _parts_ms(name, args, cd)
     byts, ops, dense = _work_bwd(*args[:5], tf, *args[5:-1])
@@ -876,7 +914,7 @@ def check_backward(key, ent, gen):
                rel_err_f32=res[torch.float32][1], ms=ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by, dense_bound_ms=dense_bound,
                bytes=byts, ops=ops, dense_ops=dense, parts_ms=parts)
-    print("[kernel-bwd] " + json.dumps(row))
+    print(f"[{tag}] " + json.dumps(row))
     assert res[cd][1] <= BF16_TOL and res[torch.float32][1] <= F32_TOL, row
     return row
 
@@ -1369,6 +1407,374 @@ def union_phase(torch, np, kind):
     del fwd, bwd
     torch.cuda.empty_cache()
     return {"edges_per_s": edges, "step": stats}
+
+
+def _large_host(subdiv):
+    """bench.py's host build of one whole add_noise(icosphere(subdiv), 0.2,
+    seed=0) mesh as a batch-1 union sample under Config(granularity=256):
+    build_raw, build_dual_sample, widths_for with bands, attach_tables.
+    Returns the meshes, the sample (numpy), its real vertex and facet rows,
+    the real edge messages of one step and the build's seconds."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import batching, builder, dataset, synth
+
+    bc = Config(seed=0, granularity=256).build_config()
+    clean = synth.icosphere(subdiv)
+    noisy = synth.add_noise(clean, 0.2, seed=0)
+    t0 = time.perf_counter()
+    bv, bf, meta = builder.build_raw(noisy, clean, bc)
+    single, _ = builder.build_dual_sample(noisy, clean, bc)
+    widths = builder.widths_for(bv, bf, meta["fv_indices"], with_bands=True)
+    sample = builder.attach_tables(batching.union_batch([single]), widths)
+    return dict(subdiv=subdiv, noisy=noisy, clean=clean, sample=sample, n_v=bv.n_nodes,
+                n_f=bf.n_nodes, host_s=time.perf_counter() - t0,
+                msgs=dataset.branch_messages(bv) + dataset.branch_messages(bf))
+
+
+def _large_host_started(subdiv):
+    """_large_host(subdiv) in a worker process of its own, started now
+    (spawned: this process holds a CUDA context), so that [large]'s host
+    build runs beside the phases before it.  Returns the executor, to shut
+    down, and the future of the build."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(_large_host, subdiv)
+
+
+def _levels(sample):
+    """Per level (side, index): its band's, blk_idx's and sub-band's shapes."""
+    shape = lambda a: None if a is None else tuple(a.shape)
+    return {(side, i): (shape(lvl.band), shape(lvl.blk_idx), shape(lvl.jband))
+            for side in ("v", "f") for i, lvl in enumerate(getattr(sample, side).levels)}
+
+
+def _step_launches(sample):
+    """Aggregate launches of one DualGNN forward (and as many backward) on a
+    sample whose levels all band: one a conv, and one more a conv of a level
+    with a boundary sub-band (feast_conv_hybrid_band's second call)."""
+    from geobignn_tpu_torch.models.dual_gnn import CONV_SCHEDULE
+    from geobignn_tpu_torch.ops import banded_cuda
+
+    want = _counts()
+    for side, c0 in (("v", 6), ("f", 12)):
+        levels = getattr(sample, side).levels
+        for _, lvl, c_in, c_out in CONV_SCHEDULE:
+            name = FWD[banded_cuda.use_transform_first(c_in or c0, c_out)]
+            n = 1 + (levels[lvl].jband is not None)
+            want[name] += n
+            want[name + "_bwd"] += n
+    return want
+
+
+def _gib(n):
+    return f"{n / 2**30:.3f} GiB"
+
+
+def _free(torch):
+    """Return freed device memory to the card: a trainer and its graphs form
+    a reference cycle (Program.fn is a bound method of the trainer), so
+    they go at a collection, not at `del`."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# [large]'s sample, bench.py's `large` field (add_noise(icosphere(7), 0.2,
+# seed=0) whole): its vertex and facet rows, the row chunks of its vertex
+# and facet fc heads, and per level (side, index) its band's shape and
+# whether it has a boundary sub-band (none is block-sparse).  The
+# sub-bands' row blocks are printed, not held: the coarser levels' pooling
+# follows floating-point ties of the host build, which round apart with
+# numpy's version (PERF.md §6)
+LARGE_ROWS, LARGE_CHUNKS = (164096, 327936), (1, 2)
+LARGE_LEVELS = {
+    ("v", 0): ((641, 256, 768), True), ("v", 1): ((185, 256, 768), True),
+    ("v", 2): ((36, 384, 1152), False), ("f", 0): ((1281, 256, 768), True),
+    ("f", 1): ((352, 256, 768), True), ("f", 2): ((100, 256, 768), True),
+}
+
+
+def large_phase(torch, np, host, kind, precision="float32"):
+    """[large] (and --large's [large-8]): Trainer.fused_step on the
+    whole-mesh sample of _large_host under Config(seed=0, granularity=256,
+    precision), bf16 fc heads, Adam at 1e-3.  Prints the levels and the
+    heads' row chunks; 3 steps run eagerly (the function the step's graph
+    holds, Trainer._captured_step, kernel by kernel) against 3 graphed from
+    the same start: parameters, Adam's moments (_same_state) and metric
+    sums bit-equal; the eager step's peak memory and the graph pool's
+    bytes; 20 graphed steps timed (CUDA events), edges/s, mfu_pct, and 3
+    replays counted (by kernel name) and profiled (busy share); the step
+    graphed against eager (_graph_and_eager); every distinct aggregate
+    call of the step, forward and backward, against its plain version on
+    the card; and the forward on the card against device="cpu".  Returns
+    the device's launches of the counted replays."""
+    import itertools
+
+    from geobignn_tpu_torch import geometry
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import dataset, synth
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN, head_chunks
+    from geobignn_tpu_torch.train import profiling, roofline
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    sub = host["subdiv"]
+    tag = ("large" if sub == 7 else f"large-{sub}") + ("" if precision == "float32" else "-bf16")
+    union, n_v, n_f = host["sample"], host["n_v"], host["n_f"]
+    rows_v, rows_f = union.v.x.shape[0], union.f.x.shape[0]
+    levels = _levels(union)
+    cfg = Config(seed=0, granularity=256, precision=precision)
+    print(f"[{tag}] add_noise(icosphere({sub}), 0.2, seed=0) whole, one batch-1 union "
+          f"sample: {host['noisy'].n_faces} faces, {n_v} vertices; rows vertex {rows_v}, "
+          f"facet {rows_f}; host build (build_raw, build_dual_sample, widths_for, "
+          f"attach_tables) {host['host_s']:.2f} s; levels (band, blk_idx, sub-band) "
+          f"{ {f'{s}{i}': v for (s, i), v in levels.items()} }; real edge messages per "
+          f"step {host['msgs']}; {precision} activations, bf16 heads")
+    if sub == 7:
+        assert (rows_v, rows_f) == LARGE_ROWS, (rows_v, rows_f)
+        assert {k: (band, jband is not None) for k, (band, _, jband) in levels.items()} \
+            == LARGE_LEVELS, levels
+    # the kernels index rows, mask bytes and scratch elements in 64 bits; ints
+    # hold N, tiles and widths (at most 1,152 floats a row)
+    assert rows_f < 2**31 // 1152 and all(
+        int(np.prod(sh)) < 2**31 for band, _, jband in levels.values()
+        for sh in (band, jband) if sh is not None)
+    assert all(blk is None for _, blk, _ in levels.values())
+
+    # the trainer's own dataset, a small mesh, is never read: fused_step and
+    # _captured_step take the sample they are given
+    stand_in = dataset.InMemoryDataset(
+        [(synth.add_noise(synth.icosphere(1), 0.2, seed=0), synth.icosphere(1))],
+        cfg.build_config())
+    _free(torch)  # the earlier phases' trainers and graphs
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    sample = union.to("cuda")
+    seeds = (1, 2, 3)
+    fwd, bwd = {}, {}
+    eager = Trainer(cfg, stand_in, None, device="cuda")
+    chunks = tuple(head_chunks(n, eager.model.fc_chunk_rows) for n in (rows_v, rows_f))
+    print(f"[{tag}] fc head row chunks (fc_chunk_rows {eager.model.fc_chunk_rows}): vertex "
+          f"{chunks[0]}, facet {chunks[1]}")
+    assert sub != 7 or chunks == LARGE_CHUNKS, chunks
+    with _recording(fwd), _recording(bwd, backward=True):
+        eager._captured_step(sample, eager._rotation(seeds[0]))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for seed in seeds[1:]:
+        eager._captured_step(sample, eager._rotation(seed))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    tr = Trainer(cfg, stand_in, None, device="cuda")
+    for seed in seeds:  # the first warms up and captures
+        tr.fused_step(sample, seed)
+    (graph,) = tr._program.graphs.values()
+    same = _same_state(torch, tr.model, tr.optimizer, eager.model, eager.optimizer) and all(
+        torch.equal(tr._sums[k], eager._sums[k]) for k in tr._sums)
+    del eager
+    _free(torch)
+    in_bytes, pool_bytes = _graph_bytes(torch, graph)
+    print(f"[{tag}] 3 steps eager against 3 graphed from the same start (rotation on): "
+          f"parameters, Adam's moments and metric sums bit-equal {same}; the eager step's "
+          f"peak {_gib(peak)} (torch.cuda.max_memory_allocated; {_gib(before)} held before "
+          f"the step: the sample, the trainer's state, the recorded kernel inputs and the "
+          f"earlier phases' {_gib(held)}); the graph's pool {_gib(pool_bytes)}, its static "
+          f"inputs {_gib(in_bytes)}; reserved {_gib(torch.cuda.memory_reserved())}; "
+          f"{time.perf_counter() - t0:.1f} s into the phase")
+    assert same and graph.replays == 2, (same, graph.replays)
+
+    it = itertools.count(100)
+    loss0 = float(tr._sums["loss"])
+    stats = profiling.time_steps(lambda: tr.fused_step(sample, next(it)), steps=20)
+    loss = float(tr._sums["loss"]) - loss0
+    with _counted() as cnt:  # replays: the wrappers count none
+        for _ in range(3):
+            tr.fused_step(sample, next(it))
+    prof = _profiled(lambda i: tr.fused_step(sample, i), steps=3)
+    want = _step_launches(union)
+    edges = host["msgs"] / (stats["median_ms"] / 1e3)
+    mfu = roofline.roofline(sample, stats["median_ms"] / 1e3)
+    print(f"[{tag}] one graphed training step (Trainer.fused_step: forward, backward, "
+          f"Adam at 1e-3): {_spread(stats)} (CUDA events); {edges:.4e} edges/s at the "
+          f"median ({host['msgs']} messages); {mfu}; per step {_busy(prof)}; loss summed "
+          f"over the 23 timed steps {loss:.4f}; card {kind}")
+    print(f"[{tag}] 3 replays, profiled: the device ran {_nonzero(cnt['device'])}, the "
+          f"wrappers counted {sum(cnt['wrappers'].values())}; the capture recorded "
+          f"{_nonzero(graph.launches)} a step, the sample's levels want "
+          f"{_nonzero(_aggregates(want))} (a conv, and one more at each level with a "
+          f"boundary sub-band)")
+    assert np.isfinite(loss) and np.isfinite(stats["median_ms"])
+    assert {k: graph.launches[k] for k in AGGREGATES} == _aggregates(want), graph.launches
+    assert sum(cnt["wrappers"].values()) == 0 and _replayed(cnt, graph, 3, 0), cnt
+
+    times = _graph_and_eager(lambda i: tr.fused_step(sample, i) if tr.one_dispatch()
+                             else tr._captured_step(sample, tr._rotation(i)))
+    print(f"[{tag}] one step, CUDA events: {_both(times)}")
+    state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    with torch.no_grad():
+        vp_g, n_g = (t.float().cpu().numpy() for t in tr.model(sample))
+    del tr, graph, sample
+    _free(torch)
+    print(f"[time] [{tag}] the steps done {time.perf_counter() - t0:.1f} s into the phase")
+
+    # each call's plain version whole, on the card: the largest, #4's
+    # backward at f0 of 1.31M faces, needs ~9 MiB a row block in float32
+    # (47 GiB at 5,121 blocks); the cache is emptied between calls
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for key in sorted(fwd):
+        rows.append(check_forward(key, fwd[key], reps=5, tag=f"{tag}-kernel"))
+        torch.cuda.empty_cache()
+    for key in sorted(bwd):
+        rows.append(check_backward(key, bwd[key], gen, reps=5, tag=f"{tag}-kernel-bwd"))
+        torch.cuda.empty_cache()
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    for name in AGGREGATES[:2] + AGGREGATES[4:6]:
+        mine = [r for r in rows if r["kernel"] == name]
+        assert sum(r["calls"] for r in mine) == want[name], (name, mine)
+        per = lambda f: sum(r["calls"] * r[f] for r in mine)
+        print(f"[{tag}] {name} per step: {want[name]} calls at {len(mine)} shapes, kernel "
+              f"{per('ms'):.3f} ms, plain {per('plain_ms'):.3f} ms, bound "
+              f"{per('bound_ms'):.4f} ms; card {kind}")
+    print(f"[time] [{tag}] the kernel checks done {time.perf_counter() - t0:.1f} s into "
+          f"the phase; their peak {_gib(torch.cuda.max_memory_allocated())}")
+
+    model = DualGNN(compute_dtype=getattr(torch, precision), fc_dtype=torch.bfloat16,
+                    device="cpu")
+    model.load_state_dict(state)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        vp_c, n_c = (t.float().numpy() for t in model(union.to("cpu")))
+    cpu_s = time.perf_counter() - t1
+    noisy = host["noisy"]  # the sample's coordinates are normalized
+    mel = (geometry.mean_edge_length_np(noisy.points, noisy.ev_indices)
+           * float(np.asarray(union.scale).reshape(-1)[0]))
+    e_pos = float(np.abs(vp_g[:n_v] - vp_c[:n_v]).max()) / mel
+    e_n = float(np.abs(n_g[:n_f] - n_c[:n_f]).max())
+    print(f"[{tag}] the forward (trained weights) with device=\"cpu\" (plain versions) "
+          f"in {cpu_s:.1f} s; card vs CPU: positions {e_pos:.3e} mean edge lengths (tol "
+          f"{POS_TOL_MEL}), normals {e_n:.3e} (tol {NORMAL_TOL})")
+    assert np.isfinite(vp_g).all() and np.isfinite(n_g).all()
+    assert e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
+    return cnt["device"]
+
+
+def large_serve_phase(torch, np, pred, subdiv, kind):
+    """--large's serving: add_noise(icosphere(subdiv), 0.2, seed=0) through
+    predict_dir_body (patches of sub_size faces, one CUDA graph of the
+    merged plan's forward, stitching, 60 updates, the .obj written), then
+    eval_denoising_result on the card (#7 at the mesh's vertex count, then
+    on the points it was given against its plain version).  The mesh's seconds split into the host build (Predictor.patch_dataset and
+    the patches' padding, InMemoryDataset.get) and the device (a profile's
+    kernel time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import profile_train_step as pts
+
+    from geobignn_tpu_torch import meshio
+    from geobignn_tpu_torch.data import dataset, synth
+    from geobignn_tpu_torch.infer import evaluate, predict
+    from geobignn_tpu_torch.ops import banded_cuda
+
+    tag = f"large-serve-{subdiv}"
+    clean = synth.icosphere(subdiv)
+    mesh = synth.add_noise(clean, 0.2, seed=0)
+    host = {"s": 0.0}
+
+    def timed(fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                host["s"] += time.perf_counter() - t
+        return call
+
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, pred.cfg.data_type, "test")
+        for sub, m in (("noisy", mesh), ("original", clean)):
+            os.makedirs(os.path.join(data, sub))
+            meshio.write_obj(os.path.join(data, sub, "ball_n1.obj" if sub == "noisy"
+                                          else "ball.obj"), m.points, m.fv_indices)
+        pred._program = None  # the mesh's plan is captured anew
+        get = dataset.InMemoryDataset.get
+        pred.patch_dataset = timed(pred.patch_dataset)
+        dataset.InMemoryDataset.get = timed(get)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                res = predict.predict_dir_body(pred, dataset_root=root)
+                torch.cuda.synchronize()
+        finally:
+            del pred.patch_dataset
+            dataset.InMemoryDataset.get = get
+        kernels = pts.device_kernels(prof)
+        device_s = sum(ms for ms, _ in kernels.values()) / 1e3
+        (row,), (graph,) = res["rows"], pred._program.graphs.values()
+        n_patches = graph.replays + 1  # the first patch warms up and captures
+        seen, nearest = [], evaluate.nearest_distance
+
+        def keep(a, b):  # the points #7 is given
+            seen.append((a.clone(), b.clone()))
+            return nearest(a, b)
+
+        banded_cuda.reset_launches()
+        evaluate.nearest_distance = keep
+        try:
+            t0 = time.perf_counter()
+            ev = evaluate.eval_denoising_result(res["result_dir"],
+                                                os.path.join(data, "original"), device="cuda")
+            eval_s = time.perf_counter() - t0
+        finally:
+            evaluate.nearest_distance = nearest
+        nn = banded_cuda.LAUNCHES["nearest"]
+    corpus = ev["corpus"]
+    print(f"[{tag}] one {mesh.n_faces}-face mesh ({mesh.n_vertices} vertices) through "
+          f"predict_dir_body, {n_patches} patches of at most {pred.sub_size} faces: "
+          f"{row['seconds']:.3f} s (read, predict, stitch, 60 updates, write, angles), "
+          f"of which the host build {host['s']:.3f} s and device kernels {device_s:.3f} s "
+          f"(profiled); aggregates {_nonzero(pts.aggregate_launches(kernels))}; angle1 "
+          f"{row['angle1']:.4f} angle2 {row['angle2']:.4f} (random weights); "
+          f"eval_denoising_result {eval_s:.3f} s, #7 launched {nn} time(s), angle "
+          f"{corpus['angle']:.4f}, vertex distance {corpus['vertex_dist']:.4e}; card {kind}")
+    assert np.isfinite([row["angle1"], row["angle2"], corpus["angle"],
+                        corpus["vertex_dist"]]).all()
+    assert nn == 1 and corpus["n_verts"] == mesh.n_vertices, (nn, corpus)
+    ((a, b),) = seen
+    check_nearest(torch, f"serve-{subdiv}", a, b, calls=nn, reps=3, plain_reps=1,
+                  brute=False, library=False)
+    return {"nearest": nn}
+
+
+def large_main(torch, np, kind, t_start, state):
+    """python3 chip_smoke.py --large: the 1,310,720-face icosphere(8) sample
+    of examples/run_1m.py through large_phase under
+    Config(precision="bfloat16"), as the JAX package runs it, and under
+    float32 activations; then the serving of the 327,680-face and
+    1,310,720-face meshes."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.infer import predict
+
+    host = _large_host(8)
+    _lap(t_start, "the icosphere(8) host build")
+    for precision in ("bfloat16", "float32"):
+        large_phase(torch, np, host, kind, precision=precision)
+        _lap(t_start, f"[large-8{'-bf16' if precision == 'bfloat16' else ''}]")
+    del host
+    pred = predict.Predictor(Config(), state, device="cuda")
+    for subdiv in (7, 8):
+        large_serve_phase(torch, np, pred, subdiv, kind)
+        _lap(t_start, f"[large-serve-{subdiv}]")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def serve_graph_phase(torch, pred, mesh, kind):
@@ -2773,9 +3179,12 @@ def viz_phase(torch, np, mesh, vp, kind):
     return launches
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    if argv not in ([], ["--large"]):
+        print("usage: python3 chip_smoke.py [--large]", file=sys.stderr)
+        return 2
     # 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2810,9 +3219,11 @@ def main() -> int:
     has_native = native.has_native()
     print(f"[build] native mesh library: {has_native} ({time.perf_counter() - t0:.2f} s)")
 
+    state = DualGNN(fc_dtype=torch.bfloat16, device="cpu", seed=0).state_dict()
+    if argv == ["--large"]:
+        return large_main(torch, np, kind, t_start, state)
     # 3. the serving path, every level banded ---------------------------------
     cfg = Config()
-    state = DualGNN(fc_dtype=torch.bfloat16, device="cpu", seed=0).state_dict()
     pred = predict.Predictor(cfg, state, device="cuda")
     pred_cpu = predict.Predictor(cfg, state, device="cpu")
     mesh, captured, launches, _ = serve_phase(pred, 0, "main")
@@ -3003,6 +3414,10 @@ def main() -> int:
 
     _lap(t_start, "the heads")
     # 15-17. the multi-device paths, every part on cuda:0 ------------------------
+    # [large]'s host build runs meanwhile in a worker process: the graphed
+    # times of phases 15-17 are the device's; phase 13's streamed epoch,
+    # bound by the host, comes after it
+    large_pool, large_host = _large_host_started(7)
     halo_fwd, halo_launches = halo_serve_phase(torch, np, state, kind)
     _lap(t_start, "phase 15")
     rows += [check_forward(key, halo_fwd[key], reps=10) for key in sorted(halo_fwd)]
@@ -3026,6 +3441,17 @@ def main() -> int:
     union_phase(torch, np, kind)
 
     _lap(t_start, "phase 7b")
+    # 7c. [large]: one whole 327,680-face mesh, one graphed training step ---------
+    t0 = time.perf_counter()
+    host = large_host.result()
+    large_pool.shutdown()
+    print(f"[large] its host build ran in a worker process from phase 15 on; waited "
+          f"for it {time.perf_counter() - t0:.1f} s")
+    more.append(large_phase(torch, np, host, kind))
+    del host
+    print(f"[large] the phase took {time.perf_counter() - t0:.1f} s")
+
+    _lap(t_start, "phase 7c")
     # 8. the run-directory path ---------------------------------------------------
     run = rundir_phase(torch, np)
     torch.cuda.empty_cache()
@@ -3096,4 +3522,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

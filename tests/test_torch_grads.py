@@ -10,7 +10,9 @@ Function.  Two comparisons:
     both packages (the aggregates' compute dtype patched to float32), so
     the algorithm is compared without bf16 rounding: the loss within 1e-5
     relative and every parameter gradient within 1e-4 of that tensor's
-    max|g| (float32 sums in another order);
+    max|g| (float32 sums in another order); once more with both fc heads
+    in row chunks (the same fc_chunk_rows in both packages) beside the
+    boundary sub-band levels, the combination a whole large mesh runs;
   * bfloat16, the Config defaults (bf16 aggregate operands, bf16 heads):
     the loss within 1e-2 relative; every tensor but the convs' `u` within
     5e-2 of its max|g|, and every tensor's gradient at a cosine of at least
@@ -38,7 +40,7 @@ from geobignn_tpu.train import trainer as jtrainer
 from geobignn_tpu_torch import params as tparams
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import builder, synth
-from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu_torch.models.dual_gnn import DualGNN, head_chunks
 from geobignn_tpu_torch.ops import banded as tbanded
 from geobignn_tpu_torch.ops import banded_cuda
 from geobignn_tpu_torch.train.trainer import _metrics_of
@@ -69,10 +71,13 @@ def _rel_err(got, want) -> float:
     return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
 
 
-@pytest.mark.parametrize("max_tile,sub,dtype_name", [
-    (384, 2, "float32"), (64, 3, "float32"), (64, 3, "bfloat16")],
-    ids=["band-float32", "hybrid-float32", "hybrid-bfloat16"])
-def test_dual_gnn_grads_match_jax(max_tile, sub, dtype_name, monkeypatch):
+# fc_chunk_rows 256 cuts icosphere(3)'s heads into row chunks: 704 vertex
+# rows in 4, 1,280 facet rows in 8
+@pytest.mark.parametrize("max_tile,sub,dtype_name,fc_chunk_rows", [
+    (384, 2, "float32", 1 << 18), (64, 3, "float32", 1 << 18),
+    (64, 3, "bfloat16", 1 << 18), (64, 3, "float32", 256)],
+    ids=["band-float32", "hybrid-float32", "hybrid-bfloat16", "hybrid-chunked-float32"])
+def test_dual_gnn_grads_match_jax(max_tile, sub, dtype_name, fc_chunk_rows, monkeypatch):
     monkeypatch.setattr(jbanded, "MAX_BAND_TILE", max_tile)
     monkeypatch.setattr(tbanded, "MAX_BAND_TILE", max_tile)
     f32 = dtype_name == "float32"
@@ -88,11 +93,14 @@ def test_dual_gnn_grads_match_jax(max_tile, sub, dtype_name, monkeypatch):
     s_t = _sample(builder, synth, sub).to("cpu")
     hybrid = [lvl.jnodes is not None for lvl in s_t.v.levels + s_t.f.levels]
     assert any(hybrid) == (max_tile == 64), hybrid
+    chunks = [head_chunks(b.x.shape[0], fc_chunk_rows) for b in (s_t.v, s_t.f)]
+    assert (min(chunks) > 1) == (fc_chunk_rows < 1 << 18), chunks
 
-    model = DualGNN(fc_dtype=None if f32 else torch.bfloat16, device="cpu", seed=5)
+    model = DualGNN(fc_dtype=None if f32 else torch.bfloat16, device="cpu", seed=5,
+                    fc_chunk_rows=fc_chunk_rows)
     loss_t, _ = _metrics_of(*model(s_t), s_t, Config())
     loss_t.backward()
-    jmodel = JDualGNN(fc_dtype=None if f32 else jnp.bfloat16)
+    jmodel = JDualGNN(fc_dtype=None if f32 else jnp.bfloat16, fc_chunk_rows=fc_chunk_rows)
 
     def jloss(p):
         return jtrainer._metrics_of(*jmodel.apply(p, s_j), s_j, JConfig())[0]
