@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (geobignn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the phases below
-    python3 chip_smoke.py --large    # the 1,310,720-face mesh (see the end)
+    python3 chip_smoke.py               # the phases below
+    python3 chip_smoke.py --large       # the 1,310,720-face mesh (see the end)
+    python3 chip_smoke.py --large-halo  # its 8-part halo step and serving (the end)
 
 Phases, each printing its lines; any failure raises and the script exits
 non-zero without the final result line:
@@ -52,7 +53,8 @@ non-zero without the final result line:
      of 32) through every aggregate kernel, forward and backward,
      banded and block-sparse, both compute dtypes, at 9 heads and at 6
      (FeaStGNNPrePool's), both schedules each, against the plain
-     versions (`[edge]` lines);
+     versions (`[edge]` lines), at tile 64, and #1-#4 at tile 384 (the
+     halo parts' band at 1,310,720 faces) at the widths of its convs;
   7. the training path at the default model's full width, twice: an
      InMemoryDataset of two (noisy, clean) icosphere(5) pairs split into 4
      patches of 20,000 faces, first with noise seeds (0, 6), whose levels
@@ -113,7 +115,8 @@ non-zero without the final result line:
      each conv of a level with a sub-band) and profiled (busy share); the
      step graphed and eager (_graph_and_eager); every distinct #1-#4 call
      of the step against its plain version (`[large-kernel]` lines); the
-     forward against device="cpu" (POS_TOL_MEL / NORMAL_TOL);
+     forward against device="cpu" and, in float32, against every conv the
+     table conv (POS_TOL_MEL / NORMAL_TOL);
   8. the run-directory path, through the entry points a user calls, at the
      default model's full width (Config() defaults, sub_size 20000), in a
      temp directory: a reference-layout corpus (Synthetic/{train,test}/
@@ -276,6 +279,44 @@ its plain version, a `[kernel]` line): seconds a mesh, its host
 build and its device kernels apart (`[large-serve-7]`, `[large-serve-8]`);
 it ends with the same result line.
 
+--large-halo runs examples/run_1m.py's halo phase on the card: the 8-part
+halo training step of the 1,310,720-face add_noise(icosphere(8), 0.2,
+seed=0) and its halo serving, every part on cuda:0.  Four host builds run
+in worker processes from the start, beside the kernels' build: run_1m.py's
+build_halo_train_sample call in table mode (as run_1m runs it) and banded
+(vertex level 1 a band at tile 384, the facet branch on tables by the tile
+gate), the single-device sample over the same hierarchies, and the
+patches of the witness below.  Then: `[large-halo-build]`, each sample's
+level modes, per level n_loc, h_total and rounds, messages, seconds and
+peak RSS beside docs/results_1m.json's halo8_virtual row (read only),
+n_loc, h_total and rounds at vertex level 1 held to it (the partition's
+topology fixes them); `[large-halo-memory]`, one eager table step with
+rematerialization off (testing.without_remat()), its peak or the card's
+refusal; `[large-halo-train]` / `[large-halo-train-banded]`,
+make_halo_train_step under Adam at 1e-3 on seeded parameters: 3 eager
+steps against 3 graphed, bit-equal; the eager peak and the graph's pool;
+graphed and eager steps timed, edges/s, busy share, 3 replays counted by
+kernel name (24 + 24 #1-#4 launches a banded step, none in table mode);
+`[large-halo-kernel]`, every distinct #1-#4 call of the banded step at
+tile 384 against its plain version; `[large-halo-vs-single]`, the table
+halo forward and loss against the single-device DualGNN on the same
+hierarchies (float32: positions F32_TOL of max, loss 1e-5; float64:
+positions and normals F32_TOL of max; the float32 normals printed with
+the conditioning of the facet branch's input normals, which magnifies the
+positions' rounding at near-degenerate predicted triangles), the
+gradients' agreement printed,
+the banded forward against the table one (float32 aggregates, [halo]'s
+bounds; bf16 operands on vertex level 1, positions POS_TOL_MEL, normals
+LARGE_HALO_BF16_NORMAL_TOL, a multiple of the JAX package's own distance
+at 81,920 faces), and the
+single-device step timed for `[large-halo-comm]`'s halo_comm_report;
+`[large-halo-serve]`, Predictor(Config()).predict_mesh_halo(mesh, 8,
+banded=True, devices=[cuda:0] * 8), its forward graph bit-equal to eager
+and counted, 60 updates, the .obj written, eval_denoising_result (#7 held
+against its plain version), seconds by stage, and the distance to the
+mesh served patch by patch as a witness.  It prints its own kernels line
+(#1-#4 and #7) and the same result line.
+
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
 max|out| (both round the same operands to bf16, but a D summed in another
 order can round an operand to the neighbouring bf16 value, 2^-8 relative);
@@ -352,6 +393,12 @@ POS_TOL_MEL, NORMAL_TOL = 2e-2, 5e-2
 # witness test holds the port's distance to there (icosphere(4))
 JAX_HALO_BF16_NORMALS, HALO_WITNESS = 6.176e-2, 1.25
 HALO_BF16_NORMAL_TOL = 7.7e-2  # HALO_WITNESS * JAX_HALO_BF16_NORMALS
+# --large-halo's: the JAX package's own distance at the largest mesh its CPU
+# run reaches, 81,920 faces (python tests/test_torch_halo_model.py 6:
+# 1.689e-1), times HALO_WITNESS; its distance grows with the mesh (3.8e-2,
+# 4.4e-2, 6.2e-2, 1.689e-1 at icosphere(3)-(6)), so at 1,310,720 faces this
+# is the tighter bound
+LARGE_HALO_BF16_NORMAL_TOL = 2.11e-1
 FWD = ("aggregate_first", "transform_first")
 AGGREGATES = tuple(pre + k + suf for suf in ("", "_bwd") for pre in ("", "bs_") for k in FWD)
 KERNELS = AGGREGATES + ("nearest",)
@@ -805,44 +852,49 @@ def check_edge_cases():
     from geobignn_tpu_torch.testing import edge_case_inputs
 
     # 9 heads (DualGNN, FGCNet: 9 x 128 = 1,152, the kernels' widest), and 6
-    # (FeaStGNNPrePool), both schedules
-    for c_in, c_out, heads in ((64, 32, 9), (128, 64, 9), (12, 32, 9), (6, 32, 9),
-                               (128, 128, 9), (6, 32, 6), (64, 32, 6), (128, 128, 6),
-                               (128, 64, 6)):
+    # (FeaStGNNPrePool), both schedules, banded and block-sparse at tile 64;
+    # then #1-#4 at tile 384 (a 1,152-byte mask row, 12 KB column panels) at
+    # the widths of the halo parts' banded level-0 convs (--large-halo)
+    cases = [(c_in, c_out, heads, 64, bs)
+             for c_in, c_out, heads in ((64, 32, 9), (128, 64, 9), (12, 32, 9), (6, 32, 9),
+                                        (128, 128, 9), (6, 32, 6), (64, 32, 6),
+                                        (128, 128, 6), (128, 64, 6))
+             for bs in (False, True)]
+    cases += [(6, 32, 9, 384, False), (64, 32, 9, 384, False)]
+    for c_in, c_out, heads, tile, bs in cases:
         tf = c_out < c_in
-        for bs in (False, True):
-            case = edge_case_inputs(c_in, c_out, tile=64, n_blk=3, heads=heads, seed=c_in,
-                                    blocksparse=bs)
-            names = ("r", "p", "x", "w", "m") + (("blk_idx",) if bs else ())
-            args = [torch.from_numpy(case[k]).cuda() for k in names]
-            gout = torch.from_numpy(case["gout"]).cuda()
-            clamped = torch.from_numpy(case["clamped"]).cuda()
-            rest = torch.ones(gout.shape[0], dtype=torch.bool, device="cuda")
-            rest[clamped] = False
-            name = ("bs_" if bs else "") + FWD[tf]
-            kernel, plain = _functions(name)
-            kernel_bwd, plain_bwd = _functions(name + "_bwd")
-            worst = {}
-            for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-                out = kernel(*args, compute_dtype=dt)
-                got = kernel_bwd(*args, gout, compute_dtype=dt)
-                torch.cuda.synchronize()
-                ref = plain(*args, compute_dtype=dt)
-                want = plain_bwd(*args, gout, compute_dtype=dt)
-                pairs = [("out", out, ref), ("r clamped", got[0][clamped], want[0][clamped]),
-                         ("r", got[0][rest], want[0][rest])]
-                pairs += list(zip("pxw", got[1:], want[1:]))
-                errs = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                        for k, a, b in pairs}
-                assert all(bool(torch.isfinite(a).all()) for _, a, _ in pairs), name
-                assert max(errs.values()) <= tol, (name, c_in, c_out, dt, errs)
-                empty = (args[4].reshape(out.shape[0], -1) == 0).all(dim=1)
-                assert bool(empty.any()) and bool((out[empty] == 0).all())
-                worst[str(dt)] = max(errs.values())
-            print(f"[edge] {name} and its backward, {heads} heads, {c_in}->{c_out}, mask "
-                  f"{tuple(args[4].shape)}: worst relative error "
-                  + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-                  + f" (tol {BF16_TOL} / {F32_TOL})")
+        case = edge_case_inputs(c_in, c_out, tile=tile, n_blk=3, heads=heads, seed=c_in,
+                                blocksparse=bs)
+        names = ("r", "p", "x", "w", "m") + (("blk_idx",) if bs else ())
+        args = [torch.from_numpy(case[k]).cuda() for k in names]
+        gout = torch.from_numpy(case["gout"]).cuda()
+        clamped = torch.from_numpy(case["clamped"]).cuda()
+        rest = torch.ones(gout.shape[0], dtype=torch.bool, device="cuda")
+        rest[clamped] = False
+        name = ("bs_" if bs else "") + FWD[tf]
+        kernel, plain = _functions(name)
+        kernel_bwd, plain_bwd = _functions(name + "_bwd")
+        worst = {}
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            out = kernel(*args, compute_dtype=dt)
+            got = kernel_bwd(*args, gout, compute_dtype=dt)
+            torch.cuda.synchronize()
+            ref = plain(*args, compute_dtype=dt)
+            want = plain_bwd(*args, gout, compute_dtype=dt)
+            pairs = [("out", out, ref), ("r clamped", got[0][clamped], want[0][clamped]),
+                     ("r", got[0][rest], want[0][rest])]
+            pairs += list(zip("pxw", got[1:], want[1:]))
+            errs = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for k, a, b in pairs}
+            assert all(bool(torch.isfinite(a).all()) for _, a, _ in pairs), name
+            assert max(errs.values()) <= tol, (name, c_in, c_out, dt, errs)
+            empty = (args[4].reshape(out.shape[0], -1) == 0).all(dim=1)
+            assert bool(empty.any()) and bool((out[empty] == 0).all())
+            worst[str(dt)] = max(errs.values())
+        print(f"[edge] {name} and its backward, {heads} heads, {c_in}->{c_out}, mask "
+              f"{tuple(args[4].shape)}: worst relative error "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+              + f" (tol {BF16_TOL} / {F32_TOL})")
 
 
 def check_forward(key, ent, reps=20, tag="kernel"):
@@ -1469,6 +1521,17 @@ def _step_launches(sample):
     return want
 
 
+def _without_bands(sample):
+    """The sample with every level's band structures taken away: each conv
+    the dense-table conv."""
+    no_band = dict.fromkeys(("band", "blk_idx", "jnodes", "jband", "jpos", "rows_b",
+                             "nbr_b", "kmask_b", "src_b", "rev_b"))
+    return sample.replace(**{
+        side: getattr(sample, side).replace(levels=tuple(
+            lvl.replace(**no_band) for lvl in getattr(sample, side).levels))
+        for side in ("v", "f")})
+
+
 def _gib(n):
     return f"{n / 2**30:.3f} GiB"
 
@@ -1510,7 +1573,8 @@ def large_phase(torch, np, host, kind, precision="float32"):
     replays counted (by kernel name) and profiled (busy share); the step
     graphed against eager (_graph_and_eager); every distinct aggregate
     call of the step, forward and backward, against its plain version on
-    the card; and the forward on the card against device="cpu".  Returns
+    the card; the forward on the card against device="cpu"; and, in
+    float32, the banded forward against every conv the table conv.  Returns
     the device's launches of the counted replays."""
     import itertools
 
@@ -1518,6 +1582,7 @@ def large_phase(torch, np, host, kind, precision="float32"):
     from geobignn_tpu_torch.config import Config
     from geobignn_tpu_torch.data import dataset, synth
     from geobignn_tpu_torch.models.dual_gnn import DualGNN, head_chunks
+    from geobignn_tpu_torch.testing import aggregates_in
     from geobignn_tpu_torch.train import profiling, roofline
     from geobignn_tpu_torch.train.trainer import Trainer
 
@@ -1663,6 +1728,24 @@ def large_phase(torch, np, host, kind, precision="float32"):
           f"in {cpu_s:.1f} s; card vs CPU: positions {e_pos:.3e} mean edge lengths (tol "
           f"{POS_TOL_MEL}), normals {e_n:.3e} (tol {NORMAL_TOL})")
     assert np.isfinite(vp_g).all() and np.isfinite(n_g).all()
+    assert e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
+
+    # the banded convs against the table convs of the same sample on the
+    # card, activations, aggregates and heads in float32 (phase 4's check
+    # at this size, where u.x spans past banded.WIDE_SPAN at level 0)
+    model = DualGNN(device="cuda")
+    model.load_state_dict(state)
+    with torch.no_grad():
+        with aggregates_in(torch.float32):
+            vp_b, n_b = (t.float().cpu().numpy() for t in model(union.to("cuda")))
+        vp_t, n_t = (t.float().cpu().numpy() for t in model(_without_bands(union).to("cuda")))
+    del model
+    _free(torch)
+    e_pos = float(np.abs(vp_b[:n_v] - vp_t[:n_v]).max()) / mel
+    e_n = float(np.abs(n_b[:n_f] - n_t[:n_f]).max())
+    print(f"[{tag}] the forward (trained weights, float32 heads) through the banded kernels "
+          f"in float32 against every conv the table conv: positions {e_pos:.3e} mean edge lengths "
+          f"(tol {POS_TOL_MEL}), normals {e_n:.3e} (tol {NORMAL_TOL})")
     assert e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
     return cnt["device"]
 
@@ -2863,26 +2946,36 @@ def halo_train_phase(torch, np, kind):
     return captured, want
 
 
+def _halo_step(torch, state, sample, cfg):
+    """A fresh DualGNN at `state`, its Adam and make_halo_train_step over
+    the sample's parts (rotation on): (model, optimizer, step)."""
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.parallel import halo_train as ht
+    from geobignn_tpu_torch.train import optim
+
+    model = DualGNN(device="cuda")
+    model.load_state_dict(state)
+    opt = optim.make_optimizer(cfg, model.parameters())
+    return model, opt, ht.make_halo_train_step(model, opt, sample.static, cfg.loss_cfg(),
+                                               cfg.pool_type, augment=True)
+
+
+def _metric_sums(torch, metrics):
+    return torch.stack([v for _, v in sorted(metrics.items())])
+
+
 def _halo_step_graph_vs_eager(torch, state, sample, cfg):
     """The halo step (rotation on) as one graph against the eager step:
     parameters, Adam's moments and the metric sums after 3 steps of the same
     sample and seeds bit-equal; then per step, graphed and eager, the time
     and the profile."""
-    from geobignn_tpu_torch.models.dual_gnn import DualGNN
-    from geobignn_tpu_torch.parallel import halo_train as ht
     from geobignn_tpu_torch.testing import eager_steps
-    from geobignn_tpu_torch.train import optim
 
     runs = []
     for eager in (False, True):
-        model = DualGNN(device="cuda")
-        model.load_state_dict(state)
-        opt = optim.make_optimizer(cfg, model.parameters())
-        step = ht.make_halo_train_step(model, opt, sample.static, cfg.loss_cfg(),
-                                       cfg.pool_type, augment=True)
+        model, opt, step = _halo_step(torch, state, sample, cfg)
         with eager_steps() if eager else contextlib.nullcontext():
-            sums = sum(torch.stack([v for _, v in sorted(step(sample.arrays, seed).items())])
-                       for seed in (1, 2, 3))
+            sums = sum(_metric_sums(torch, step(sample.arrays, seed)) for seed in (1, 2, 3))
         runs.append((model, opt, sums, step))
     (gm, go, gs, step), (em, eo, es, _) = runs
     same = _same_state(torch, gm, go, em, eo) and torch.equal(gs, es)
@@ -2899,6 +2992,618 @@ def _same_state(torch, gm, go, em, eo):
     return all(torch.equal(a, b) and all(torch.equal(go.state[a][k], eo.state[b][k])
                                          for k in ("exp_avg", "exp_avg_sq", "step"))
                for a, b in zip(gm.parameters(), em.parameters()))
+
+
+# --------------------------------------------------------------------------
+# --large-halo: examples/run_1m.py's halo phase on the card — the 8-part
+# halo training step of the 1,310,720-face mesh (table mode, as run_1m runs
+# it, and banded) and its halo serving, every part on cuda:0
+# --------------------------------------------------------------------------
+
+LARGE_HALO_PARTS = 8
+# what the partition's topology alone fixes (vertex level 1 in table mode),
+# as docs/results_1m.json's halo8_virtual row records it; the coarser
+# levels and the messages follow the pooling, whose floats round with
+# numpy's version
+LARGE_HALO_TOPOLOGY = {"n_loc": 81928, "h_total": 3488, "rounds_L1v": 3}
+LARGE_HALO_MODES = ("v: L1 banded tile 384, L2 table, L3 table; "
+                    "f: L1 table, L2 table, L3 table")
+
+
+def _numpy_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _large_halo_host(what):
+    """One host build of --large-halo on add_noise(icosphere(8), 0.2,
+    seed=0), in a worker process of its own: "table" / "banded", run_1m.py's
+    call build_halo_train_sample(noisy, clean, BuildConfig(granularity=256,
+    reorder=False), 8, seed=0, banded=...) (the parts' tensors travel back
+    as numpy arrays); "single", the single-device sample over the same
+    owner-constrained hierarchies with its tables; "patches", the
+    Predictor's patch dataset of the noisy mesh (the patch-stitched
+    witness of the halo-served mesh).  Returns (result, seconds, the
+    worker's peak RSS in GB as run_1m.py reads it)."""
+    import resource
+
+    import numpy as np
+
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.data.builder import BuildConfig, attach_tables
+    from geobignn_tpu_torch.infer import predict
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.parallel import halo_train as ht
+
+    clean = synth.icosphere(8)
+    noisy = synth.add_noise(clean, 0.2, seed=0)
+    bc = BuildConfig(granularity=256, reorder=False)
+    t0 = time.perf_counter()
+    if what in ("table", "banded"):
+        s = ht.build_halo_train_sample(noisy, clean, bc, LARGE_HALO_PARTS, seed=0,
+                                       banded=what == "banded")
+        out = dataclasses.replace(s, arrays=_numpy_tree(s.arrays, lambda t: t.numpy()))
+    elif what == "single":
+        out = attach_tables(_single_device_sample(np, noisy, clean, bc, LARGE_HALO_PARTS, 0))
+    else:
+        pred = predict.Predictor(Config(), DualGNN(device="cpu").state_dict(), device="cpu")
+        out = pred.patch_dataset(noisy)
+    secs = time.perf_counter() - t0
+    return out, secs, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _large_halo_hosts_started():
+    """--large-halo's four host builds (_large_halo_host), each in a spawned
+    worker process of its own, started now, so that they run beside the
+    kernels' build and one another.  Returns the executors, to shut down,
+    and the futures by build."""
+    import concurrent.futures
+    import multiprocessing
+
+    pools, futures = [], {}
+    for what in ("table", "banded", "single", "patches"):
+        pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        pools.append(pool)
+        futures[what] = pool.submit(_large_halo_host, what)
+    return pools, futures
+
+
+def _run_1m_row():
+    """docs/results_1m.json's halo8_virtual row (read, never written)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "results_1m.json")
+    with open(path) as f:
+        return next(r for r in json.load(f) if r["phase"] == "halo8_virtual")
+
+
+def _halo_levels(sample):
+    """Per branch and level: n_loc, h_total and exchange rounds."""
+    return "; ".join(
+        f"{tag}: " + ", ".join(f"L{i + 1} n_loc {sh.n_loc} h_total {sh.h_total} rounds "
+                               f"{len(sh.rounds)}" for i, sh in enumerate(hb.levels))
+        for tag, hb in (("v", sample.structure.v), ("f", sample.structure.f)))
+
+
+def large_halo_build_phase(torch, futures, row):
+    """[large-halo-build]: the table and banded samples of run_1m.py's call,
+    from their workers; each one's level modes, per level n_loc, h_total and
+    rounds, messages, seconds and peak RSS beside run_1m.py's row; the
+    partition's topology-only figures held to it.  Returns the samples
+    (their parts' tensors on the CPU)."""
+    samples = {}
+    for mode in ("table", "banded"):
+        s, secs, rss = futures[mode].result()
+        s = dataclasses.replace(s, arrays=_numpy_tree(s.arrays, torch.from_numpy))
+        sh = s.structure.v.levels[0]
+        print(f"[large-halo-build] {mode}: build_halo_train_sample(add_noise(icosphere(8), "
+              f"0.2, seed=0), icosphere(8), BuildConfig(granularity=256, reorder=False), "
+              f"{LARGE_HALO_PARTS}, seed=0, banded={mode == 'banded'}): {s.n_f} faces, "
+              f"{s.n_v} vertices; levels {_halo_modes(s)}; {_halo_levels(s)}; messages "
+              f"{s.meta['messages']}; host build {secs:.1f} s, peak RSS {rss:.2f} GB (its "
+              f"worker process); run_1m.py's halo8_virtual row: n_loc {row['n_loc']}, "
+              f"h_total {row['h_total']}, rounds_L1v {row['rounds_L1v']}, msgs {row['msgs']}, "
+              f"t_build_s {row['t_build_s']}, peak_rss_gb {row['peak_rss_gb']} (the JAX "
+              f"package on its own host)")
+        got = {"n_loc": sh.n_loc, "h_total": sh.h_total, "rounds_L1v": len(sh.rounds)}
+        if mode == "table":
+            assert got == LARGE_HALO_TOPOLOGY == {k: row[k] for k in got}, got
+        else:  # the same halo; the slots rounded up to the band's tile
+            assert _halo_modes(s) == LARGE_HALO_MODES, _halo_modes(s)
+            assert sh.n_loc % 384 == 0 and sh.n_loc - 384 < LARGE_HALO_TOPOLOGY["n_loc"]
+            assert {k: got[k] for k in ("h_total", "rounds_L1v")} == {
+                k: LARGE_HALO_TOPOLOGY[k] for k in ("h_total", "rounds_L1v")}, got
+        samples[mode] = s
+    return samples
+
+
+def large_halo_memory_phase(torch, state, sample, cfg):
+    """[large-halo-memory]: one eager step of the table sample as the model
+    ran before its table convs and fc heads were rematerialized
+    (testing.without_remat()): its peak, or the allocation the card
+    refused.  A measurement, not a phase of the path: the model runs
+    rematerialized everywhere else."""
+    from geobignn_tpu_torch.testing import eager_steps, without_remat
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model, opt, step = _halo_step(torch, state, sample, cfg)
+    try:
+        with eager_steps(), without_remat():
+            step(sample.arrays, 1)
+        torch.cuda.synchronize()
+        outcome = "it fits"
+    except torch.cuda.OutOfMemoryError as err:
+        outcome = "torch.cuda.OutOfMemoryError: " + str(err).split(". ")[0]
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, step
+    _free(torch)
+    print(f"[large-halo-memory] one eager table-mode step without rematerialization "
+          f"(testing.without_remat()): {outcome}; peak {_gib(peak)} "
+          f"(torch.cuda.max_memory_allocated; {_gib(held)} held before: the sample) of "
+          f"{_gib(torch.cuda.get_device_properties(0).total_memory)}")
+
+
+def large_halo_train_phase(torch, np, sample, mode, state, cfg, kind, steps=5):
+    """[large-halo-train] / [large-halo-train-banded]: make_halo_train_step
+    under Adam at 1e-3 over the 8 parts on cuda:0: 3 eager steps (the first
+    recorded) against 3 graphed from the same start (rotation on):
+    parameters, Adam's moments and metric sums bit-equal; the eager peak
+    and the graph's pool; `steps` graphed steps timed (CUDA events), edges/s,
+    3 replays counted by kernel name (the capture's launches _halo_expected's
+    24 + 24 banded, none in table mode) and profiled (busy share); then,
+    the graph's memory returned, `steps` eager steps timed and one profiled.
+    Returns the recorded forward and backward calls and the counted
+    launches."""
+    import itertools
+
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train import profiling
+
+    tag = "large-halo-train" + ("-banded" if mode == "banded" else "")
+    t0 = time.perf_counter()
+    per_step = _halo_expected(sample, LARGE_HALO_PARTS)
+    per_step.update({k + "_bwd": v for k, v in per_step.items() if v})
+    _free(torch)
+    held = torch.cuda.memory_allocated()
+    fwd, bwd = {}, {}
+    em, eo, estep = _halo_step(torch, state, sample, cfg)
+    with eager_steps():
+        with _recording(fwd), _recording(bwd, backward=True):
+            sums = [_metric_sums(torch, estep(sample.arrays, 1))]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sums += [_metric_sums(torch, estep(sample.arrays, s)) for s in (2, 3)]
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    es = sum(sums)
+    gm, go, gstep = _halo_step(torch, state, sample, cfg)
+    gs = sum(_metric_sums(torch, gstep(sample.arrays, s)) for s in (1, 2, 3))
+    (graph,) = gstep.program.graphs.values()
+    same = _same_state(torch, gm, go, em, eo) and torch.equal(gs, es)
+    in_bytes, pool_bytes = _graph_bytes(torch, graph)
+    print(f"[{tag}] {LARGE_HALO_PARTS} parts on cuda:0, Adam at {cfg.lr}, the port's seeded "
+          f"parameters: 3 steps eager against 3 graphed from the same start (rotation on): "
+          f"parameters, Adam's moments and metric sums bit-equal {same}; the eager step's "
+          f"peak {_gib(peak)} (torch.cuda.max_memory_allocated; {_gib(before)} held before "
+          f"it: the sample {_gib(held)}, the recorded kernel inputs, the model); the "
+          f"graph's pool {_gib(pool_bytes)}, its static inputs {_gib(in_bytes)}; "
+          f"{time.perf_counter() - t0:.1f} s into the phase")
+    assert same and graph.replays == 2, (same, graph.replays)
+    assert graph.launches == per_step, (graph.launches, per_step)
+    assert {k: sum(e["calls"] for kk, e in rec.items() if kk[0] == k)
+            for rec in (fwd, bwd) for k in {kk[0] for kk in rec}} == _nonzero(per_step)
+
+    it = itertools.count(100)
+    graphed = profiling.time_steps(lambda: gstep(sample.arrays, next(it)), steps=steps)
+    with _counted() as cnt:  # replays: the wrappers count none
+        for _ in range(3):
+            gstep(sample.arrays, next(it))
+    g_prof = _profiled(lambda i: gstep(sample.arrays, i), steps=3)
+    assert sum(cnt["wrappers"].values()) == 0 and _replayed(cnt, graph, 3, 0), cnt
+    del gm, go, gstep, graph
+    _free(torch)  # the graph's pool, before the eager steps
+    with eager_steps():
+        eager = profiling.time_steps(lambda: estep(sample.arrays, next(it)), steps=steps,
+                                     warmup=1)
+        e_prof = _profiled(lambda i: estep(sample.arrays, i), steps=1)
+    del em, eo, estep
+    _free(torch)
+    msgs = sample.meta["messages"]
+    groups = sorted(g_prof[3].items(), key=lambda kv: -kv[1][0])
+    print(f"[{tag}] one step: graphed {_spread(graphed)}, {_busy(g_prof)}; eager "
+          f"{_spread(eager)}, {_busy(e_prof)} (CUDA events); {msgs / (graphed['median_ms'] / 1e3):.4e}"
+          f" edges/s at the graphed median ({msgs} messages); the graph's device time by "
+          f"kernel group: " + ", ".join(f"{g} {ms:.3f} ms in {n:.0f}" for g, (ms, n) in groups)
+          + f"; 3 replays by kernel name {_nonzero(cnt['device'])}, the capture recorded "
+          f"{_nonzero(per_step)} a step (expected: {LARGE_HALO_PARTS} parts x banded level-1 "
+          f"convs each way); card {kind}; the phase {time.perf_counter() - t0:.1f} s")
+    return fwd, bwd, cnt["device"]
+
+
+def large_halo_kernel_phase(torch, fwd, bwd, kind):
+    """[large-halo-kernel]: every distinct #1-#4 call of the banded step
+    (part 0's inputs at each shape; tile 384) against its plain version on
+    the card.  Returns the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = [check_forward(key, fwd[key], reps=10, tag="large-halo-kernel")
+            for key in sorted(fwd)]
+    rows += [check_backward(key, bwd[key], gen, reps=10, tag="large-halo-kernel-bwd")
+             for key in sorted(bwd)]
+    assert rows and all(r["tile"] == 384 for r in rows), [r["tile"] for r in rows]
+    for name in AGGREGATES[:2] + AGGREGATES[4:6]:  # #1-#4
+        mine = [r for r in rows if r["kernel"] == name]
+        per = lambda f: sum(r["calls"] * r[f] for r in mine)
+        print(f"[large-halo-kernel] {name} per banded step: {sum(r['calls'] for r in mine)} "
+              f"calls of "
+              f"{[r['ms'] for r in mine]} ms each, kernel {per('ms'):.3f} ms, plain "
+              f"{per('plain_ms'):.3f} ms, bound {per('bound_ms'):.4f} ms; card {kind}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def _normalized_inputs(calls):
+    """While open, geometry.safe_normalize appends each input it is given,
+    detached, to `calls`."""
+    from geobignn_tpu_torch import geometry
+
+    fn = geometry.safe_normalize
+    geometry.safe_normalize = lambda x, dim=-1: calls.append(x.detach()) or fn(x, dim)
+    try:
+        yield calls
+    finally:
+        geometry.safe_normalize = fn
+
+
+def large_halo_single_phase(torch, np, samples, single, state, cfg, mel, kind):
+    """[large-halo-vs-single]: the table-mode halo forward and loss against
+    the single-device DualGNN on the same owner-constrained hierarchies
+    (its convs dense-table convs): in float32 the positions within F32_TOL
+    of max and the loss within 1e-5; the normals in float64 (parameters,
+    sample and compute) within F32_TOL of max, and in float32 printed with
+    what magnifies them: the facet branch's input normals are the cross
+    products of the predicted triangles, so the positions' rounding reaches
+    a face's normal divided by its triangle's area (random weights predict
+    near-degenerate ones); the gradients' agreement printed; the
+    single-device step timed.  Then the banded halo forward
+    against the table one, as [halo]: its aggregates in float32
+    (POS_TOL_MEL / NORMAL_TOL) and with bf16 operands (POS_TOL_MEL /
+    LARGE_HALO_BF16_NORMAL_TOL).  Returns the single-device step's ms."""
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+    from geobignn_tpu_torch.params import tree_of
+    from geobignn_tpu_torch.parallel import halo_train as ht
+    from geobignn_tpu_torch.parallel import partition as hp
+    from geobignn_tpu_torch.testing import aggregates_in, eager_steps, float64_sample
+    from geobignn_tpu_torch.train.trainer import _metrics_of
+
+    t0 = time.perf_counter()
+    model = DualGNN(device="cuda")  # float32 heads, as the halo model's
+    model.load_state_dict(state)
+    halo = samples["table"].to([torch.device("cuda", 0)] * LARGE_HALO_PARTS)
+    one = single.to("cuda")
+    n_v, n_f = halo.n_v, halo.n_f
+    seen_h, seen_s = [], []  # what each forward normalizes, in call order
+    with eager_steps(), _normalized_inputs(seen_h):
+        v_h, n_h = ht.unshard_predictions(
+            halo, *ht.make_halo_forward(model, halo.static, cfg.pool_type)(halo.arrays))
+    with torch.no_grad(), _normalized_inputs(seen_s):
+        v_s, n_s = (t.cpu().numpy() for t in model(one))
+    n_s = n_s[:n_f]
+    e_v, e_n = _rel(v_h, v_s[:n_v]), _rel(n_h, n_s)
+    # the facet branch's input normals (the cross products of the predicted
+    # triangles, each model's first normalization) and its heads' outputs
+    # (the last): a difference of the predicted positions reaches a face's
+    # normal divided by its triangle's area
+    unshard = lambda parts: hp.unshard_features(
+        np.stack([t.cpu().numpy() for t in parts]), halo.structure.f.levels[0], n_f)
+    cross_h, head_h = unshard(seen_h[:LARGE_HALO_PARTS]), unshard(seen_h[-LARGE_HALO_PARTS:])
+    cross_s, head_s = (seen_s[k][:n_f].cpu().numpy() for k in (0, -1))
+    del seen_h, seen_s
+    area = np.linalg.norm(cross_s, axis=1)
+    area = area / np.median(area)
+    unit = lambda a: a / np.maximum(np.linalg.norm(a, axis=1, keepdims=True), 1e-12)
+    d_in = np.abs(unit(cross_h) - unit(cross_s)).max(axis=1)
+    worst_in, worst_out = int(d_in.argmax()), int(np.abs(n_h - n_s).max(axis=1).argmax())
+
+    grads = []
+    for run in ("halo", "single"):
+        model.zero_grad(set_to_none=True)
+        if run == "halo":
+            loss, _ = ht._halo_loss(tree_of(model), halo.arrays, halo.static, cfg.pool_type,
+                                    cfg.loss_cfg())
+        else:
+            loss = _metrics_of(*model(one), one, cfg)[0]
+        loss.backward()
+        grads.append((float(loss.detach()), {k: p.grad.detach().clone()
+                                             for k, p in model.named_parameters()}))
+        del loss
+        _free(torch)
+    (l_h, g_h), (l_s, g_s) = grads
+    worst = max(((float((g_h[k] - g_s[k]).abs().max()) / max(float(g_s[k].abs().max()), 1e-30),
+                  k) for k in g_s))
+
+    def single_step():
+        model.zero_grad(set_to_none=True)
+        _metrics_of(*model(one), one, cfg)[0].backward()
+
+    single_ms = _cuda_ms(single_step, reps=3, warmup=1)
+    del grads, g_h, g_s
+    model.zero_grad(set_to_none=True)
+
+    # both forwards in float64 (parameters, sample and compute), where no
+    # triangle's conditioning reaches 1e-4
+    m64 = DualGNN(compute_dtype=torch.float64, fc_dtype=torch.float64, device="cuda")
+    m64.to(torch.float64).load_state_dict(state)
+    h64 = _float64(torch, halo)
+    with eager_steps():
+        v_h64, n_h64 = ht.unshard_predictions(h64, *ht.make_halo_forward(
+            m64, h64.static, cfg.pool_type, torch.float64)(h64.arrays))
+    with torch.no_grad():
+        v_s64, n_s64 = (t.cpu().numpy() for t in m64(float64_sample(one)))
+    e64 = (_rel(v_h64, v_s64[:n_v]), _rel(n_h64, n_s64[:n_f]))
+    del m64, h64
+    print(f"[large-halo-vs-single] table mode against the single-device DualGNN on the "
+          f"same hierarchies ({n_f} faces; dense-table convs): float32, positions "
+          f"{e_v:.3e} of max (tol {F32_TOL}), loss {l_h:.9f} against {l_s:.9f} "
+          f"({abs(l_h - l_s) / abs(l_s):.3e} relative, tol 1e-5); float64, positions "
+          f"{e64[0]:.3e} and normals {e64[1]:.3e} of max (tol {F32_TOL}); float32 normals, "
+          f"printed: {e_n:.3e}, the heads' outputs {_rel(head_h, head_s):.3e} of max, the "
+          f"facet branch's input normals {float(d_in.max()):.3e} at a triangle of "
+          f"{area[worst_in]:.3e} the median area ({int((area < 1e-3).sum())} of "
+          f"{n_f} under 1e-3; the output's worst face {area[worst_out]:.3e}); gradients "
+          f"(float32): worst tensor {worst[1]} {worst[0]:.3e} of its max|g| (a finding: "
+          f"LeakyReLU near-ties fall apart between two programs at this size); the "
+          f"single-device step {single_ms:.3f} ms eager (CUDA events, 3 steps); card {kind}")
+    assert np.isfinite([l_h, l_s]).all() and np.isfinite(n_h).all()
+    assert e_v <= F32_TOL and abs(l_h - l_s) <= 1e-5 * abs(l_s)
+    assert max(e64) <= F32_TOL, e64
+    del one, halo
+    _free(torch)
+
+    # banded against table, as [halo]: the aggregates in float32 compute to
+    # the model tolerances; with the default's bf16 operands the positions
+    # to POS_TOL_MEL and the normals to LARGE_HALO_BF16_NORMAL_TOL.  Only
+    # vertex level 1 bands, so the normals differ only through the predicted
+    # positions, magnified by the facet branch (table convs in both runs) at
+    # its near-degenerate triangles: the ratio of the two distances printed
+    banded = samples["banded"].to([torch.device("cuda", 0)] * LARGE_HALO_PARTS)
+    fwd = ht.make_halo_forward(model, banded.static, cfg.pool_type)
+    with eager_steps():
+        with aggregates_in(torch.float32):
+            v_32, n_32 = ht.unshard_predictions(banded, *fwd(banded.arrays))
+        v_b, n_b = ht.unshard_predictions(banded, *fwd(banded.arrays))
+    errs = {k: (float(np.abs(v - v_h).max()) / mel, float(np.abs(n - n_h).max()))
+            for k, (v, n) in (("float32", (v_32, n_32)), ("bf16", (v_b, n_b)))}
+    print(f"[large-halo-vs-single] banded ({_halo_modes(banded)}) against table mode: "
+          f"aggregates in float32, positions {errs['float32'][0]:.3e} mean edge lengths "
+          f"(tol {POS_TOL_MEL}), normals {errs['float32'][1]:.3e} (tol {NORMAL_TOL}); bf16 "
+          f"aggregate operands, positions {errs['bf16'][0]:.3e} (tol {POS_TOL_MEL}), normals "
+          f"{errs['bf16'][1]:.3e} (tol {LARGE_HALO_BF16_NORMAL_TOL}: {HALO_WITNESS} x the JAX "
+          f"package's own at 81,920 faces); the normals' distance over the positions' "
+          + ", ".join(f"{k} {n / max(pos, 1e-30):.3e}" for k, (pos, n) in errs.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+    assert all(np.isfinite(a).all() for a in (v_32, n_32, v_b, n_b))
+    assert errs["float32"][0] <= POS_TOL_MEL and errs["float32"][1] <= NORMAL_TOL
+    assert errs["bf16"][0] <= POS_TOL_MEL and errs["bf16"][1] <= LARGE_HALO_BF16_NORMAL_TOL
+    del banded, fwd, model
+    _free(torch)
+    return single_ms
+
+
+def large_halo_serve_phase(torch, np, state, mesh, clean, patches, kind):
+    """[large-halo-serve]: Predictor(Config()).predict_mesh_halo(mesh, 8,
+    banded=True, devices=[cuda:0] * 8) of the noisy 1,310,720-face mesh
+    (its first call warms up and captures the forward's graph), the
+    predictor's 60 update iterations, the .obj written and
+    eval_denoising_result on the card (#7 held against its plain version on
+    the points it was given); the forward's replay against its eager run
+    (bit-equal) and counted; seconds split into host build, forward, updates,
+    write and evaluation; and, as a witness, the distance to the same mesh
+    served patch by patch (predict_mesh over the patch dataset a worker
+    built, as --large's [large-serve-8]; no bound: halo pooling is
+    partition-constrained, so the two are different models of one family).
+    Returns the counted launches and #7's row and launches."""
+    from geobignn_tpu_torch import geometry, meshio
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.infer import evaluate, predict
+    from geobignn_tpu_torch.ops import banded_cuda
+    from geobignn_tpu_torch.parallel import halo_train as ht
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train import profiling
+
+    _free(torch)
+    pred = predict.Predictor(Config(), state, device="cuda")
+    devs = [torch.device("cuda", 0)] * LARGE_HALO_PARTS
+    kept, host = [], {"s": 0.0}
+    build = ht.build_halo_train_sample
+
+    def timed_build(*args, **kw):  # the predictor's host build, timed and kept
+        t = time.perf_counter()
+        kept.append(build(*args, **kw))
+        host["s"] += time.perf_counter() - t
+        return kept[-1]
+
+    ht.build_halo_train_sample = timed_build
+    try:
+        t0 = time.perf_counter()
+        vp, nf = pred.predict_mesh_halo(mesh, LARGE_HALO_PARTS, True, devs)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    finally:
+        ht.build_halo_train_sample = build
+    (sample,) = kept
+    fwd = pred._halo[1]
+    (graph,) = fwd.program.graphs.values()
+    want = _halo_expected(sample, LARGE_HALO_PARTS)
+    with _counted() as cnt:  # the main path's forward: one replay
+        got = [t.clone() for outs in fwd(sample.arrays) for t in outs]
+    with eager_steps():
+        ref = [t.clone() for outs in fwd(sample.arrays) for t in outs]
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    del got, ref
+    graphed = profiling.time_steps(lambda: fwd(sample.arrays), steps=5)
+    with eager_steps():
+        eager = profiling.time_steps(lambda: fwd(sample.arrays), steps=3, warmup=1)
+    print(f"[large-halo-serve] predict_mesh_halo of the noisy mesh "
+          f"({mesh.n_faces} faces) over {LARGE_HALO_PARTS} parts on cuda:0, banded, "
+          f"Config(): levels {_halo_modes(sample)}; the first call {call_s:.3f} s, of which "
+          f"the host build {host['s']:.3f} s and the forward's warm-up and capture "
+          f"{call_s - host['s']:.3f} s; the forward graphed {_spread(graphed)}, eager "
+          f"{_spread(eager)} (CUDA events); a replay against the eager forward: bit-equal "
+          f"{same}; the replay by kernel name {_nonzero(cnt['device'])}, the capture "
+          f"recorded {_nonzero(graph.launches)}, expected {_nonzero(want)}")
+    assert same and graph.launches == want and cnt["device"] == _aggregates(want), cnt
+    assert sum(cnt["wrappers"].values()) == 0 and want["aggregate_first"] > 0
+    assert _halo_modes(sample).startswith("v: L1 banded tile 384"), _halo_modes(sample)
+    assert np.isfinite(vp).all() and np.isfinite(nf).all()
+    del sample, kept, fwd, graph
+    pred._halo = None
+    _free(torch)
+
+    dev = torch.device("cuda")
+    fv = torch.from_numpy(mesh.fv_indices.astype(np.int64)).to(dev)
+    vf = torch.from_numpy(mesh.vf_indices.astype(np.int64)).to(dev)
+
+    def updated(vp, nf):
+        v = predict.update_positions(torch.from_numpy(vp).to(dev), fv, vf,
+                                     torch.from_numpy(nf).to(dev), n_iter=60)
+        return v.cpu().numpy()
+
+    t0 = time.perf_counter()
+    v = updated(vp, nf)
+    upd_s = time.perf_counter() - t0
+    seen, nearest = [], evaluate.nearest_distance
+
+    def keep(a, b):  # the points #7 is given
+        seen.append((a.clone(), b.clone()))
+        return nearest(a, b)
+
+    with tempfile.TemporaryDirectory() as root:
+        res_dir, orig_dir = os.path.join(root, "result"), os.path.join(root, "original")
+        os.makedirs(res_dir)
+        os.makedirs(orig_dir)
+        meshio.write_obj(os.path.join(orig_dir, "ball.obj"), clean.points, clean.fv_indices)
+        t0 = time.perf_counter()
+        meshio.write_obj(os.path.join(res_dir, "ball_n1-60.obj"), v, mesh.fv_indices)
+        write_s = time.perf_counter() - t0
+        banded_cuda.reset_launches()
+        evaluate.nearest_distance = keep
+        try:
+            t0 = time.perf_counter()
+            ev = evaluate.eval_denoising_result(res_dir, orig_dir, device="cuda")
+            eval_s = time.perf_counter() - t0
+        finally:
+            evaluate.nearest_distance = nearest
+        nn = banded_cuda.LAUNCHES["nearest"]
+    corpus = ev["corpus"]
+    print(f"[large-halo-serve] 60 update iterations {upd_s:.3f} s; the .obj written in "
+          f"{write_s:.3f} s; eval_denoising_result {eval_s:.3f} s, #7 launched {nn} "
+          f"time(s), angle {corpus['angle']:.4f}, vertex distance "
+          f"{corpus['vertex_dist']:.4e} (random weights); the mesh "
+          f"{call_s + upd_s + write_s + eval_s:.3f} s in all; card {kind}")
+    assert nn == 1 and corpus["n_verts"] == mesh.n_vertices, (nn, corpus)
+    assert np.isfinite([corpus["angle"], corpus["vertex_dist"]]).all()
+    ((a, b),) = seen
+    nn_row = check_nearest(torch, "serve-halo-8", a, b, calls=nn, reps=3, plain_reps=1,
+                           brute=False, library=False)
+    del seen, a, b
+
+    # the witness: the same mesh served patch by patch ([large-serve-8])
+    pred.patch_dataset = lambda m: patches
+    t0 = time.perf_counter()
+    vp_w, nf_w = pred.predict_mesh(mesh)
+    v_w = updated(vp_w, nf_w)
+    mel = geometry.mean_edge_length_np(mesh.points, mesh.ev_indices)
+    print(f"[large-halo-serve] witness, no bound: the halo-served mesh against the same "
+          f"mesh served in {len(patches.entries)} patches (predict_mesh, {time.perf_counter() - t0:.1f} s "
+          f"on the card and the host, its patches built by a worker): predicted positions "
+          f"{float(np.abs(vp - vp_w).max()) / mel:.3e}, updated positions "
+          f"{float(np.abs(v - v_w).max()) / mel:.3e} mean edge lengths, normals "
+          f"{float(np.abs(nf - nf_w).max()):.3e} (max); halo pooling is partition-"
+          f"constrained, so these are two models of one family")
+    del pred
+    _free(torch)
+    return cnt["device"], nn_row, nn
+
+
+def large_halo_main(torch, np, kind, t_start, state, hosts):
+    """python3 chip_smoke.py --large-halo: examples/run_1m.py's 8-part halo
+    training step of the 1,310,720-face mesh on one card, in table mode and
+    banded, and the mesh's halo serving with `state` (--large's weights)."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import synth
+    from geobignn_tpu_torch.geometry import mean_edge_length_np
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+
+    pools, futures = hosts
+    row = _run_1m_row()
+    clean = synth.icosphere(8)
+    mesh = synth.add_noise(clean, 0.2, seed=0)
+    samples = large_halo_build_phase(torch, futures, row)
+    _lap(t_start, "[large-halo-build]")
+    cfg = Config(seed=0, lr=1e-3)
+    train_state = DualGNN(device="cpu", seed=0).state_dict()  # params.init_, seed 0
+    cuda = [torch.device("cuda", 0)] * LARGE_HALO_PARTS
+    large_halo_memory_phase(torch, train_state, samples["table"].to(cuda), cfg)
+    for mode in ("table", "banded"):
+        # the banded step, the last, leaves its recorded calls and launches
+        fwd, bwd, launches = large_halo_train_phase(torch, np, samples[mode].to(cuda), mode,
+                                                    train_state, cfg, kind)
+        _lap(t_start, f"[large-halo-train{'-banded' if mode == 'banded' else ''}]")
+    rows = large_halo_kernel_phase(torch, fwd, bwd, kind)
+    del fwd, bwd
+    _lap(t_start, "[large-halo-kernel]")
+    single, secs, rss = futures["single"].result()
+    print(f"[large-halo-vs-single] the single-device sample over the same hierarchies "
+          f"(_single_device_sample with attach_tables): host build {secs:.1f} s, peak RSS "
+          f"{rss:.2f} GB (its worker process)")
+    mel = mean_edge_length_np(mesh.points, mesh.ev_indices) * float(
+        samples["table"].meta["scale"])  # the samples' coordinates are normalized
+    single_ms = large_halo_single_phase(torch, np, samples, single, train_state, cfg, mel,
+                                        kind)
+    del single
+    from geobignn_tpu_torch.parallel import accounting
+
+    for mode in ("table", "banded"):
+        rep = accounting.halo_comm_report(samples[mode].structure,
+                                          step_ms_single_chip=single_ms)
+        print(f"[large-halo-comm] {mode}: halo_comm_report with the single-device step "
+              f"measured here ({single_ms:.3f} ms; run_1m.py assumed 600): efficiency "
+              f"{rep['efficiency_no_overlap']:.4f} without overlap, "
+              f"{rep['efficiency_real_cut']:.4f} on the real cut; per step "
+              f"{rep['step_payload_mb']:.3f} MB in {rep['n_rounds_step']} rounds (run_1m.py's "
+              f"row: {row['eff_no_overlap']}, {row['eff_real_cut']}, {row['payload_mb']} MB)")
+    del samples
+    _lap(t_start, "[large-halo-vs-single]")
+    patches, secs, rss = futures["patches"].result()
+    for pool in pools:
+        pool.shutdown()
+    print(f"[large-halo-serve] the witness's patch dataset: {len(patches.entries)} patches, "
+          f"host build {secs:.1f} s, peak RSS {rss:.2f} GB (its worker process)")
+    served, nn_row, nn = large_halo_serve_phase(torch, np, state, mesh, clean, patches, kind)
+    _lap(t_start, "[large-halo-serve]")
+
+    kernels = []
+    for name in AGGREGATES[:2] + AGGREGATES[4:6]:  # #1-#4
+        mine = [r for r in rows if r["kernel"] == name]
+        kernels.append(_kernel_entry(name, mine, launches[name] + served[name]))
+    kernels.append({
+        "name": "nearest_distance", "route": "cuda",
+        "source": "geobignn_tpu_torch/csrc/nearest.cu",
+        "replaces": "geobignn_tpu/ops/pallas_nn.py:42", "launches": nn,
+        **{k: nn_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}})
+    print(f"[time] {time.perf_counter() - t_start:.1f} s after the card was found")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def sharded_phase(torch, np, train_ds, kind):
@@ -3182,8 +3887,8 @@ def viz_phase(torch, np, mesh, vp, kind):
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--large"]):
-        print("usage: python3 chip_smoke.py [--large]", file=sys.stderr)
+    if argv not in ([], ["--large"], ["--large-halo"]):
+        print("usage: python3 chip_smoke.py [--large | --large-halo]", file=sys.stderr)
         return 2
     # 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3209,6 +3914,8 @@ def main(argv) -> int:
     from geobignn_tpu_torch.ops import banded_cuda
     from geobignn_tpu_torch.testing import aggregates_in, eager_steps, heads_peak_bytes
 
+    # --large-halo's host builds run in worker processes from here on
+    hosts = _large_halo_hosts_started() if argv == ["--large-halo"] else None
     # 2. build --------------------------------------------------------------
     secs = banded_cuda.build(force=True)
     print(f"[build] nvcc {sorted(banded_cuda.SOURCES.values())} -> sm_90a "
@@ -3222,6 +3929,8 @@ def main(argv) -> int:
     state = DualGNN(fc_dtype=torch.bfloat16, device="cpu", seed=0).state_dict()
     if argv == ["--large"]:
         return large_main(torch, np, kind, t_start, state)
+    if argv == ["--large-halo"]:
+        return large_halo_main(torch, np, kind, t_start, state, hosts)
     # 3. the serving path, every level banded ---------------------------------
     cfg = Config()
     pred = predict.Predictor(cfg, state, device="cuda")
@@ -3284,13 +3993,8 @@ def main(argv) -> int:
     # band structures taken away, so that every level takes the table conv,
     # against the same patch through the banded kernels in float32 compute
     # (what the JAX package's banded-vs-table model test compares).
-    no_band = dict.fromkeys(("band", "blk_idx", "jnodes", "jband", "jpos", "rows_b",
-                             "nbr_b", "kmask_b", "src_b", "rev_b"))
     patch0 = mem.get(0)
-    stripped = patch0.replace(**{
-        side: getattr(patch0, side).replace(levels=tuple(
-            lvl.replace(**no_band) for lvl in getattr(patch0, side).levels))
-        for side in ("v", "f")})
+    stripped = _without_bands(patch0)
     nv, nf = (int(b.n_nodes) for b in mem.entries[0][:2])
     banded_cuda.reset_launches()
     with eager_steps():  # aggregates_in swaps functions a replayed graph never calls

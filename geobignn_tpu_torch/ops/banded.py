@@ -408,12 +408,32 @@ def window(x_pad: torch.Tensor, tile: int) -> torch.Tensor:
     return torch.cat([blocks[:-2], blocks[1:-1], blocks[2:]], dim=1)
 
 
+# the span of u.x over the heads above which factorized_softmax shifts
+# each node's halves by the middle of its span, not by their maxima
+WIDE_SPAN = 20.0
+
+
 def factorized_softmax(x: torch.Tensor, u: torch.Tensor, c: torch.Tensor):
-    """p_h(j) = exp(u_h.x_j - max), r_h(i) = exp(c_h - u_h.x_i - max): the
-    per-node halves of the FeaSt head softmax (max-shifted per node).  The
-    shifts are detached, as the JAX package's stop_gradient: the aggregate
-    is invariant to a per-node scaling of p and r, so no gradient flows
-    through them.
+    """p_h(j) = exp(u_h.x_j - s_j), r_h(i) = exp(c_h - u_h.x_i - t_i): the
+    per-node halves of the FeaSt head softmax.  The aggregate is invariant
+    to a per-node scaling of p and of r, so the shifts s and t are
+    detached, as the JAX package's stop_gradient.
+
+    The JAX function shifts by the maxima, s = max_h u.x and t = max_h
+    (c - u.x); so is it here while every node's span of u.x over the heads
+    (max_h - min_h) stays under WIDE_SPAN.  Then a node's product with its
+    own or a near neighbour's halves, the D of the aggregates, is about
+    exp(-span), and it falls under the aggregates' 1e-12 clamp once a span
+    passes about 27.6: at level 0 of a whole mesh whose coordinates run to
+    hundreds of mean edge lengths (a 327,680-face icosphere with seeded
+    weights), where the JAX module's conv is wrong (it notes the deviation
+    and presumes a saturated softmax; the scores (x_j - x_i).u are not).  Where any node's span passes WIDE_SPAN, every node
+    is shifted by the middle of its span, s = -t = (max_h + min_h) / 2:
+    each half stays within exp(+-span / 2) and D near sum_h exp(c_h), up to
+    a span of about 170, float32's exponent range
+    (tests/test_torch_banded.py::test_banded_conv_at_large_coordinates).
+    The choice is one for the call, made on the device (a captured step
+    replays it), so that no pair of neighbours mixes the two.
 
     `x @ u` comes out in x's dtype; the shifts and exponentials run in at
     least float32 and p and r are rounded to that dtype once, as XLA runs
@@ -423,10 +443,13 @@ def factorized_softmax(x: torch.Tensor, u: torch.Tensor, c: torch.Tensor):
     subtraction."""
     a = x @ u  # (N, H)
     af = a.to(torch.promote_types(a.dtype, torch.float32))
-    p = torch.exp(af - af.amax(dim=1, keepdim=True).detach()).to(a.dtype)
     ca = c.to(af.dtype) - af
-    r = torch.exp(ca - ca.amax(dim=1, keepdim=True).detach()).to(a.dtype)
-    return p, r
+    hi, lo = af.amax(dim=1, keepdim=True), af.amin(dim=1, keepdim=True)
+    wide = ((hi - lo) > WIDE_SPAN).any()
+    mid = (hi + lo) / 2
+    p = torch.exp(af - torch.where(wide, mid, hi).detach()).to(a.dtype)
+    r = torch.exp(ca - torch.where(wide, -mid, ca.amax(dim=1, keepdim=True)).detach())
+    return p, r.to(a.dtype)
 
 
 def self_loop_epilogue(num, x, params, deg):

@@ -14,7 +14,10 @@ and `halo_dual_gnn`, which take the port's DualGNN parameters in the JAX
 tree layout (params.nest: {"gnn_v": {"l_conv1": {"u": ...}}, "fc_v1": ...}).
 The parameters stay where they are; each part computes with a copy on its
 device, so autograd sums every part's gradient into them (the psum of the
-JAX transpose).
+JAX transpose).  As the single-device model, the table and COO convs and the
+fc heads run under `dual_gnn._remat` (only their inputs are kept for the
+backward: at 1,310,720 faces over 8 parts the kept intermediates would
+outgrow an 80 GB card); the banded aggregate is left out.
 """
 
 from __future__ import annotations
@@ -331,9 +334,10 @@ def halo_gnn_module(params: dict, xs: list, ds: list, sd: dict, pool_type: str =
             return hp.halo_feast_conv_banded(local[name], xs, [d[f"band{lvl}"] for d in ds],
                                              *args)
         if f"tab{lvl}" in ds[0]:  # scatter-free dense tables (default)
-            return hp.halo_feast_conv_table(local[name], xs, [d[f"tab{lvl}"] for d in ds],
-                                            *args)
-        return hp.halo_feast_conv(local[name], xs, [d[f"ei{lvl}"] for d in ds], *args)
+            return dual_gnn._remat(hp.halo_feast_conv_table, local[name], xs,
+                                   [d[f"tab{lvl}"] for d in ds], *args)
+        return dual_gnn._remat(hp.halo_feast_conv, local[name], xs,
+                               [d[f"ei{lvl}"] for d in ds], *args)
 
     def pool(xs, a, b, size_key):
         xs = [_pool_local(x, d[a], d[b].shape[0], pool_type) for x, d in zip(xs, ds)]
@@ -373,11 +377,15 @@ def halo_dual_gnn(params: dict, xvs: list, xfs: list, ds: list, sd: dict,
         q = heads[name][p]
         return x @ q["kernel"].to(x.dtype) + q["bias"].to(x.dtype)
 
+    def head(fc1, fc2, p, f):  # rematerialized: the (n_loc, 1024) hidden is not kept
+        return _f32(dual_gnn._remat(
+            lambda f: dense(fc2, p, dual_gnn._act(dense(fc1, p, f))), f))
+
     feat_v = halo_gnn_module(params["gnn_v"], xvs, [d["v"] for d in ds], sd["v"],
                              pool_type, dt)
     vert_ps = []
     for p, (x, f) in enumerate(zip(xvs, feat_v)):
-        out_v = _f32(dense("fc_v2", p, dual_gnn._act(dense("fc_v1", p, f))))
+        out_v = head("fc_v1", "fc_v2", p, f)
         if params["fc_v2"]["kernel"].shape[-1] == 1:  # force_depth head
             if depth_directions is None:
                 raise ValueError(
@@ -399,6 +407,6 @@ def halo_dual_gnn(params: dict, xvs: list, xfs: list, ds: list, sd: dict,
 
     feat_f = halo_gnn_module(params["gnn_f"], xf_full, [d["f"] for d in ds], sd["f"],
                              pool_type, dt)
-    norm_ps = [geometry.safe_normalize(
-        _f32(dense("fc_f2", p, dual_gnn._act(dense("fc_f1", p, f))))) for p, f in enumerate(feat_f)]
+    norm_ps = [geometry.safe_normalize(head("fc_f1", "fc_f2", p, f))
+               for p, f in enumerate(feat_f)]
     return vert_ps, norm_ps

@@ -81,6 +81,21 @@ def _tol(ref, dtype_name):
                          ids=["aggregate_first", "transform_first"])
 def test_plain_aggregate_matches_jax(c_in, c_out, dtype_name):
     m, _, n = _band()
+    _check_plain_aggregate(m, n, c_in, c_out, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c_in,c_out", [(6, 8), (16, 5)],
+                         ids=["aggregate_first", "transform_first"])
+def test_plain_aggregate_matches_jax_at_tile_384(c_in, c_out, dtype_name):
+    """Tile 384, a 1,152-column window: the tile examples/run_1m.py's 8 halo
+    parts band their vertex level at (icosphere(3) in 2 row blocks)."""
+    m, _, n = _band(subdiv=3, tile=384)
+    assert m.shape == (2, 384, 1152)
+    _check_plain_aggregate(m, n, c_in, c_out, dtype_name)
+
+
+def _check_plain_aggregate(m, n, c_in, c_out, dtype_name):
     r, p, x, w = _inputs(m.shape[0] * m.shape[1], n, c_in, c_out, seed=c_in)
     ref = np.asarray(banded_pallas.banded_aggregate(
         jnp.asarray(r), jnp.asarray(p), jnp.asarray(x), jnp.asarray(w),
@@ -136,6 +151,58 @@ def test_feast_conv_banded_matches_jax(c_in, c_out):
         jp, jnp.asarray(x), jnp.asarray(m), jnp.asarray(deg)))
     out = banded_cuda.feast_conv_banded_kernel(tp, tx, tm, td).numpy()
     np.testing.assert_allclose(out, ref, **_tol(ref, "bfloat16"))
+
+
+def test_banded_conv_at_large_coordinates():
+    """The banded conv on level-0 features of a whole large mesh, whose
+    positions in mean edge lengths run to hundreds: icosphere(2) with its
+    positions in its mean edge lengths, then moved 150 of them along each
+    axis (the head softmax sees only x_j - x_i), u at the seeded model's
+    scale, so that u.x spans over 90 across the heads.  The port's banded
+    conv in float32 (the plain aggregate) against the exact COO conv
+    (ops/feastconv.feast_conv), on both: within 1e-4 of max|out|.  The JAX
+    package's banded conv on the same
+    inputs (its halves shifted by their maxima, so that D falls under the
+    1e-12 clamp) is off by order 1: the reference's documented deviation,
+    which ops/banded.factorized_softmax's middle shift repairs."""
+    from geobignn_tpu_torch.ops.feastconv import feast_conv
+
+    mesh = synth.icosphere(2)
+    ei = graphs.build_vertex_graph_1ring(mesh.ev_indices, mesh.n_vertices)
+    n = mesh.n_vertices
+    perm = jbanded.rcm_order(ei.astype(np.int64), n)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    ei_r = np.stack([inv[ei[0]], inv[ei[1]]])
+    m = jbanded.band_mask_np(ei_r, round_up(n + 1, 64), 64)
+    n_pad = m.shape[0] * m.shape[1]
+    pts = mesh.points[perm]
+    pts = pts / np.linalg.norm(pts[ei_r[0]] - pts[ei_r[1]], axis=1).mean()
+    prm = _feast_params(6, 8, seed=11)
+    prm["u"] = (np.random.default_rng(3).normal(size=(6, HEADS)) * 0.09).astype(np.float32)
+    deg = np.zeros(n_pad, np.float32)
+    np.add.at(deg, ei_r[0], 1.0)
+    tp = {k: torch.from_numpy(v) for k, v in prm.items()}
+    jp = FeastParams(**{k: jnp.asarray(v) for k, v in prm.items()})
+    outs = {}
+    for shift in (0.0, 150.0):
+        x = np.zeros((n_pad, 6), np.float32)
+        x[:n, :3] = pts + np.float32(shift)
+        x[:n, 3:] = mesh.points[perm]
+        a = x[:n] @ prm["u"]
+        tx = torch.from_numpy(x)
+        exact = feast_conv(tp, tx, torch.from_numpy(ei_r)).numpy()[:n]
+        got = tbanded.feast_conv_banded(tp, tx, torch.from_numpy(m),
+                                        torch.from_numpy(deg)).numpy()[:n]
+        ref = np.asarray(jbanded.feast_conv_banded(jp, jnp.asarray(x), jnp.asarray(m),
+                                                   jnp.asarray(deg)))[:n]
+        scale = np.abs(exact).max()
+        outs[shift] = (float(np.abs(got - exact).max() / scale),
+                       float(np.abs(ref - exact).max() / scale), float((a.max(1) - a.min(1)).max()))
+    (e0, j0, span0), (e1, j1, span1) = outs[0.0], outs[150.0]
+    assert span0 < 27 < 90 < span1 < 170, (span0, span1)
+    assert e0 <= 1e-4 and e1 <= 1e-4, (e0, e1)
+    assert j0 <= 1e-4 < 0.1 <= j1, (j0, j1)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])

@@ -92,6 +92,21 @@ def test_plain_bwd_matches_jax_vjp(c_in, c_out, dtype_name):
     """All four cotangents of the plain backward against jax.vjp of the
     Pallas aggregate (interpret mode)."""
     m, _, n = _band()
+    _check_plain_bwd(m, n, c_in, c_out, dtype_name)
+
+
+@SCHEDULES
+@DTYPES
+def test_plain_bwd_matches_jax_vjp_at_tile_384(c_in, c_out, dtype_name):
+    """The same at tile 384, a 1,152-column window: the tile
+    examples/run_1m.py's 8 halo parts band their vertex level at
+    (icosphere(3) in 2 row blocks)."""
+    m, _, n = _band(subdiv=3, tile=384)
+    assert m.shape == (2, 384, 1152)
+    _check_plain_bwd(m, n, c_in, c_out, dtype_name)
+
+
+def _check_plain_bwd(m, n, c_in, c_out, dtype_name):
     r, p, x, w, gout = _inputs(m.shape[0] * m.shape[1], n, c_in, c_out, seed=c_in)
     _, vjp = jax.vjp(
         lambda r_, p_, x_, w_: banded_pallas.banded_aggregate(
@@ -175,6 +190,43 @@ def test_factorized_softmax_shift_carries_no_gradient():
     want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x, u, c)))
     prim = [torch.from_numpy(a).requires_grad_() for a in (x, u, c)]
     p, r = tbanded.factorized_softmax(*prim)
+    loss = (p * torch.from_numpy(g1)).sum() + (r * torch.from_numpy(g2)).sum()
+    got = torch.autograd.grad(loss, prim)
+    for name, g, j in zip(("x", "u", "c"), got, want):
+        _close(g.numpy(), j, 1e-5, f"d/d{name}")
+
+
+def test_factorized_softmax_wide_span_shift_carries_no_gradient():
+    """Where a node's u.x spans more than banded.WIDE_SPAN over the heads,
+    every node's halves are shifted by the middle of its span (the JAX
+    function's max shifts would put D under its clamp); those shifts are
+    detached too: gradients of p and r match jax.grad of the same
+    expression, and p and r equal it."""
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=(40, 6)) * 8).astype(np.float32)
+    u = (rng.normal(size=(6, HEADS)) * 0.5).astype(np.float32)
+    c = (rng.normal(size=HEADS) * 0.3).astype(np.float32)
+    g1 = rng.normal(size=(40, HEADS)).astype(np.float32)
+    g2 = rng.normal(size=(40, HEADS)).astype(np.float32)
+    a = x @ u
+    assert tbanded.WIDE_SPAN < (a.max(1) - a.min(1)).max() < 170
+
+    def halves(x_, u_, c_):
+        a = x_ @ u_
+        s = jax.lax.stop_gradient((a.max(axis=1, keepdims=True)
+                                   + a.min(axis=1, keepdims=True)) / 2)
+        return jnp.exp(a - s), jnp.exp(c_ - a + s)
+
+    def jloss(x_, u_, c_):
+        p, r = halves(x_, u_, c_)
+        return (p * g1).sum() + (r * g2).sum()
+
+    jargs = [jnp.asarray(t) for t in (x, u, c)]
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*jargs)
+    prim = [torch.from_numpy(t).requires_grad_() for t in (x, u, c)]
+    p, r = tbanded.factorized_softmax(*prim)
+    for name, got, ref in zip("pr", (p, r), halves(*jargs)):
+        _close(got.detach().numpy(), ref, 1e-5, name)
     loss = (p * torch.from_numpy(g1)).sum() + (r * torch.from_numpy(g2)).sum()
     got = torch.autograd.grad(loss, prim)
     for name, g, j in zip(("x", "u", "c"), got, want):

@@ -131,21 +131,54 @@ def test_owner_constrained_hierarchy_matches_jax(vgraph, n_parts):
         np.testing.assert_array_equal(spec.owner_out, own)
 
 
-@pytest.mark.parametrize("banded", [False, True], ids=["table", "banded"])
-@pytest.mark.parametrize("n_parts", [2, 4])
-def test_halo_train_sample_matches_jax(n_parts, banded):
+def mixed_band_pair():
+    """A mesh pair whose 8 parts band the vertex level at tile 128 and need
+    tile 256 on the facet level (per-part bandwidths 79 and 154): with
+    ops.banded.MAX_BAND_TILE at 128 the vertex level bands and the facet
+    branch stays on tables, as examples/run_1m.py's 1,310,720-face mesh
+    does at the gate's 384 (bandwidths 363 and 729)."""
+    m_o = jsynth.cylinder(80, 24)
+    return jsynth.add_noise(m_o, 0.2, seed=0), m_o
+
+
+@pytest.fixture
+def band_gate_128(monkeypatch):
+    """Both packages' banded-tile gate (ops/banded.MAX_BAND_TILE) at 128."""
+    from geobignn_tpu.ops import banded as jbanded
+    from geobignn_tpu_torch.ops import banded as tbanded
+
+    monkeypatch.setattr(jbanded, "MAX_BAND_TILE", 128)
+    monkeypatch.setattr(tbanded, "MAX_BAND_TILE", 128)
+
+
+@pytest.mark.parametrize("n_parts,banded", [
+    (2, False), (2, True), (4, False), (4, True), (8, False), (8, True), (8, "mixed")],
+    ids=["2-table", "2-banded", "4-table", "4-banded", "8-table", "8-banded", "8-mixed"])
+def test_halo_train_sample_matches_jax(n_parts, banded, request):
     """build_halo_train_sample: the HaloDual (both HaloBranches, the corner
     gather's halo and reverse tables), the static schedule, the messages and
-    every part's tensors equal to the JAX sample's slices."""
-    m_o = jsynth.icosphere(2)
-    m_n = jsynth.add_noise(m_o, 0.2, seed=1)
-    s = ht.build_halo_train_sample(m_n, m_o, BuildConfig(granularity=16), n_parts,
-                                   seed=1, banded=banded)
-    js = jht.build_halo_train_sample(m_n, m_o, JBuildConfig(granularity=16), n_parts,
-                                     seed=1, banded=banded)
+    every part's tensors equal to the JAX sample's slices.  8 parts take
+    examples/run_1m.py's call (BuildConfig(granularity=256, reorder=False),
+    seed 0) on icosphere(4); "mixed" on mixed_band_pair() with the tile
+    gate at 128 in both packages: the vertex level banded, the facet branch
+    on tables."""
+    if n_parts == 8:
+        m_n, m_o = (mixed_band_pair() if banded == "mixed" else
+                    (jsynth.add_noise(jsynth.icosphere(4), 0.2, seed=0), jsynth.icosphere(4)))
+        kw, seed = dict(granularity=256, reorder=False), 0
+    else:
+        m_o = jsynth.icosphere(2)
+        m_n, kw, seed = jsynth.add_noise(m_o, 0.2, seed=1), dict(granularity=16), 1
+    if banded == "mixed":
+        request.getfixturevalue("band_gate_128")
+    s = ht.build_halo_train_sample(m_n, m_o, BuildConfig(**kw), n_parts, seed=seed,
+                                   banded=bool(banded))
+    js = jht.build_halo_train_sample(m_n, m_o, JBuildConfig(**kw), n_parts, seed=seed,
+                                     banded=bool(banded))
     assert_same(s.structure, js.structure)
     assert s.static == js.static
-    assert (s.structure.v.band0 is not None) == banded
+    assert (s.structure.v.band0 is not None) == bool(banded)
+    assert (s.structure.f.band0 is not None) == (banded is True)
     assert s.meta["messages"] == js.meta["messages"]
     assert (s.n_v, s.n_f) == (js.n_v, js.n_f)
     for p, part in enumerate(s.arrays):

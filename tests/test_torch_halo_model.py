@@ -137,6 +137,51 @@ def test_halo_forward_and_gradients_match_single_device(pair):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max() + 1e-12, name
 
 
+@pytest.fixture
+def one_thread():
+    """torch's CPU kernels are bit-repeatable on one thread only."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["table", "banded"])
+def test_halo_remat_same_gradients_fewer_kept_bytes(pair, banded, one_thread):
+    """The halo model's table and COO convs and fc heads run under
+    dual_gnn._remat: the loss and every parameter gradient bit-equal with
+    rematerialization off (testing.without_remat()), and the intermediates
+    kept for the backward outside the rematerialized calls (the storages
+    autograd saves, counted once) under half as many bytes (here 0.9 MB
+    against 48.8 MB in table mode, 20.2 against 57.6 banded, the banded
+    aggregate's inputs among them).  At 1,310,720 faces over 8 parts the kept
+    intermediates would outgrow an 80 GB card (chip_smoke.py --large-halo's
+    [large-halo-memory])."""
+    import contextlib
+
+    m_n, m_o = pair
+    s = ht.build_halo_train_sample(m_n, m_o, builder.BuildConfig(granularity=16), 4,
+                                   seed=1, banded=banded)
+    model = DualGNN(device="cpu", seed=11)
+    runs = []
+    for remat in (True, False):
+        kept: dict = {}
+
+        def pack(t):
+            kept[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        with contextlib.nullcontext() if remat else testing.without_remat():
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                loss, _ = ht._halo_loss(pm.tree_of(model), s.arrays, s.static, "max", {})
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs.append((float(loss.detach()), grads, sum(kept.values())))
+    (l_on, g_on, b_on), (l_off, g_off, b_off) = runs
+    assert l_on == l_off
+    assert all(torch.equal(a, b) for a, b in zip(g_on, g_off))
+    assert b_on < 0.5 * b_off, (b_on, b_off)
+
+
 def test_predict_mesh_halo_matches_jax():
     """The serving path: the same weights in both predictors, 4 parts;
     the perm restore, scale and centroid included."""
@@ -196,10 +241,11 @@ def test_halo_banded_bf16_distance_witness():
     positions within 1e-3 mean edge lengths.  The two packages round the
     aggregates' operands to bf16 at different points, so the distances are
     of one size, not equal (icosphere(3): 2.8e-2 port, 3.8e-2 JAX; (4):
-    4.0e-2, 4.4e-2; (5): 5.3e-2, 6.2e-2 — `python
+    4.0e-2, 4.4e-2; (5): 5.3e-2, 6.2e-2; (6): 1.15e-1, 1.69e-1 — `python
     tests/test_torch_halo_model.py 5`); chip_smoke.py's [halo] bounds the
     card's distance on the icosphere(5) mesh at this multiple of JAX's
-    there."""
+    there, and --large-halo at 1,310,720 faces at this multiple of JAX's
+    at icosphere(6)."""
     d = _bf16_distances(4)
     assert d["port"]["normals"] <= WITNESS_MULTIPLE * d["jax"]["normals"], d
     assert max(d["port"]["positions_mel"], d["jax"]["positions_mel"]) <= 1e-3, d

@@ -35,6 +35,7 @@ from geobignn_tpu_torch.models.dual_gnn import DualGNN
 from geobignn_tpu_torch.parallel import halo_model as hm
 from geobignn_tpu_torch.parallel import halo_train as ht
 from geobignn_tpu_torch.train.halo_trainer import HaloTrainer
+from test_torch_halo import band_gate_128, mixed_band_pair  # noqa: F401 (a fixture)
 
 testing.share_cores()  # torch's CPU threads: this test worker's share of the cores
 
@@ -47,6 +48,19 @@ def _reference_native():
 def _pairs(n=2, noise=0.2):
     m_o = jsynth.icosphere(2)
     return [(jsynth.add_noise(m_o, noise, seed=i), m_o) for i in range(n)]
+
+
+@pytest.fixture
+def banded_in_float32(monkeypatch):
+    """Both packages' halo banded conv with its aggregate in float32."""
+    import functools
+
+    from geobignn_tpu.parallel import partition as jhp
+
+    monkeypatch.setattr(jhp, "halo_feast_conv_banded", functools.partial(
+        jhp.halo_feast_conv_banded, compute_dtype=jnp.float32))
+    with testing.aggregates_in(torch.float32):
+        yield
 
 
 def _assert_params_close(model, jtree, before: dict, lr: float, tol: float = 1e-4):
@@ -67,12 +81,30 @@ def _assert_params_close(model, jtree, before: dict, lr: float, tol: float = 1e-
         assert ((got - want).abs() <= tol * step + ulp * want.abs() + adam).all(), name
 
 
-def test_halo_train_step_matches_jax():
-    """One Adam step over 4 parts: the port's make_halo_train_step against
-    JAX's under shard_map."""
-    m_n, m_o = _pairs(2)[1]
-    s = ht.build_halo_train_sample(m_n, m_o, builder.BuildConfig(granularity=16), 4, seed=1)
-    js = jht.build_halo_train_sample(m_n, m_o, JBuildConfig(granularity=16), 4, seed=1)
+@pytest.mark.parametrize("n_parts,mode", [(4, "table"), (8, "mixed")],
+                         ids=["4-table", "8-mixed"])
+def test_halo_train_step_matches_jax(n_parts, mode, request):
+    """One Adam step: the port's make_halo_train_step against JAX's under
+    shard_map.  4 parts in table mode; 8 parts in the mixed mode of
+    examples/run_1m.py's mesh at a small size (test_torch_halo.py's
+    mixed_band_pair, BuildConfig(granularity=256, reorder=False), the tile
+    gate at 128 in both packages): the vertex level banded, the facet branch
+    on tables.  The banded aggregate computes in float32 in both packages
+    there: with their default bf16 operands, which the two round at
+    different points, Adam's first step carries the gradients' rounding to
+    3e-3 of a tensor's change."""
+    if mode == "mixed":
+        request.getfixturevalue("band_gate_128")
+        request.getfixturevalue("banded_in_float32")
+        (m_n, m_o), kw, seed = mixed_band_pair(), dict(granularity=256, reorder=False), 0
+    else:
+        (m_n, m_o), kw, seed = _pairs(2)[1], dict(granularity=16), 1
+    s = ht.build_halo_train_sample(m_n, m_o, builder.BuildConfig(**kw), n_parts, seed=seed,
+                                   banded=mode == "mixed")
+    js = jht.build_halo_train_sample(m_n, m_o, JBuildConfig(**kw), n_parts, seed=seed,
+                                     banded=mode == "mixed")
+    assert (s.structure.v.band0 is not None, s.structure.f.band0 is not None) == (
+        mode == "mixed", False)
     model = DualGNN(device="cpu", seed=11)
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
@@ -80,7 +112,7 @@ def test_halo_train_step_matches_jax():
 
     tx = optax.adam(1e-3)
     p0 = pm.to_jax_params(before)["params"]
-    step = jht.make_halo_train_step(tx, jmake_mesh(1, 4), js.arrays, static_d=js.static)
+    step = jht.make_halo_train_step(tx, jmake_mesh(1, n_parts), js.arrays, static_d=js.static)
     p1, _, jm = step(p0, tx.init(p0), jax.tree.map(jnp.asarray, js.arrays),
                      jax.random.PRNGKey(7))
     for k in ("loss", "loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f"):
