@@ -298,6 +298,18 @@ def _bwd_weights(r, p, m, compute_dtype, win):
     return r_blk, p_win, _cast(minv, compute_dtype), mdd
 
 
+def _denominator_path(mdd, rows, cols):
+    """dbar = mdd * (rows colsᵀ) per block, on the slots where mdd is set
+    and zero elsewhere.  `rows` carries each row's r and `cols` each window
+    column's p; their product is of the order of the pair's D, which is
+    moderate for neighbours but, under the middle shift of
+    ops/banded.factorized_softmax, can pass float32's range for two far
+    apart nodes of one window (a whole mesh's boundary sub-band gathers
+    rows from across it): there the dense product is inf or NaN, which
+    mdd's zero would not cancel."""
+    return torch.where(mdd != 0, mdd * (rows @ cols.transpose(1, 2)), mdd)
+
+
 def _fold_windows(slabs: torch.Tensor, tile: int) -> torch.Tensor:
     """(B, 3T, C) per-block window cotangents -> (N, C) node rows by the
     overlap-add of `_fold_windows_T` (banded_pallas.py:494-504)."""
@@ -340,7 +352,7 @@ def aggregate_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16,
     a4 = a.reshape(n_blk, -1, heads, c_in)
     xbar_win = (p_win[..., None] * a4).sum(dim=2)
     pbar_direct = (a4 * x_win[:, :, None, :]).sum(dim=3)
-    dbar = mdd * (ybar @ xpw.transpose(1, 2))  # the denominator path
+    dbar = _denominator_path(mdd, ybar, xpw)
     rbar = rbar_direct + dbar @ p_win
     pbar_win = pbar_direct + dbar.transpose(1, 2) @ r_blk
     return (rbar.reshape(n, heads), win.fold(pbar_win), win.fold(xbar_win),
@@ -370,7 +382,7 @@ def transform_first_bwd_plain(r, p, x, w, m, gout, compute_dtype=torch.bfloat16,
     rbar_direct = _head_sum(_cast(gz * z, compute_dtype), heads)
     zbar = _cast(gz * rw, compute_dtype)
     ybarpw = minv_c.transpose(1, 2) @ zbar  # (B, W, H*C_out)
-    dbar = mdd * (zbar @ ypw.transpose(1, 2))  # the denominator path
+    dbar = _denominator_path(mdd, zbar, ypw)
     rbar = rbar_direct + dbar @ p_win
     pbar_win = (_head_sum(_cast(y * ybarpw, compute_dtype), heads)
                 + dbar.transpose(1, 2) @ r_blk)

@@ -20,8 +20,12 @@ capture's warm-up.  `batch_size > 1` keeps the eager
 gradient/accumulate/apply loop, as the JAX trainer keeps three dispatches
 there; the CPU, SGD and RMSprop are eager; `testing.eager_steps()` makes
 the card eager too, for comparisons.  The two paths run the same
-operations on the same tensors.  Metrics accumulate on the device and sync
-once per epoch.  Every
+operations on the same tensors.  The eval pass is the JAX `self._eval`:
+on the card one replay of a CUDA graph of a sample's forward and metrics
+per padded shape (one for a preloaded run, one per bucket plan when
+streamed), in the step's memory pool; eager where `capture.one_card`
+says so, as the step.  Metrics accumulate on the device and sync once per
+epoch and once per eval pass.  Every
 epoch draws `np.random.default_rng(seed * 100003 + epoch)`: the permutation
 first (so the shuffle equals the JAX trainer's), then one integer per step
 that seeds the rotation's torch.Generator.  With that, and the optimizer's
@@ -76,6 +80,7 @@ from geobignn_tpu_torch.train.logging import MetricLogger, Tee
 from geobignn_tpu_torch.utils import resolve_device
 
 METRIC_KEYS = ("loss", "loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f")
+EVAL_KEYS = ("loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f")
 
 
 def _metrics_of(vert_p, norm_p, sample, cfg: Config):
@@ -155,11 +160,19 @@ class Trainer:
         self._cache: dict = {}
         # fused_step: one CUDA graph of the step per padded shape; the
         # gradients a capture leaves point into the graph's memory, so
-        # outside it the parameters hold none, as after an eager step
+        # outside it the parameters hold none, as after an eager step.  The
+        # eval pass replays one graph of a sample's forward and metrics per
+        # padded shape (the JAX `self._eval`); one stream replays the steps'
+        # and the evaluation's graphs one at a time, so they share a pool
+        pool = capture.Pool()
         self._program = capture.Program(
-            self._captured_step, settle=lambda: self.optimizer.zero_grad(set_to_none=True))
-        # the epoch's metric sums on the device (a captured step adds into them)
+            self._captured_step, settle=lambda: self.optimizer.zero_grad(set_to_none=True),
+            pool=pool)
+        self._eval_program = capture.Program(self._eval_into, pool=pool)
+        # the epoch's metric sums and the eval pass's node-weighted sums on
+        # the device (a captured step or eval forward adds into them)
         self._sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
+        self._eval_sums = {k: torch.zeros((), device=self.device) for k in EVAL_KEYS}
         self._sharded_step = None
         if self._mesh is not None:
             dynamic = isinstance(self.model, DualGNNDynamic)
@@ -311,22 +324,32 @@ class Trainer:
             logger.log("train", self.epoch, **agg)
         return agg
 
+    def _eval_into(self, sample) -> None:
+        """What the graph of an eval sample holds: the forward, the metrics
+        and their node-weighted sums added into the pass's sums."""
+        m = _metrics_of(*self.model(sample), sample, self.cfg)[1]
+        for k, n in (("loss_v", "n_v"), ("error_v", "n_v"),
+                     ("loss_f", "n_f"), ("error_f", "n_f")):
+            self._eval_sums[k] += m[k] * m[n]
+        self._eval_sums["n_v"] += m["n_v"]
+        self._eval_sums["n_f"] += m["n_f"]
+
     @torch.no_grad()
     def evaluate(self, logger: MetricLogger | None = None):
-        """Node-count-weighted eval means (reference train_dual.py:233-263)."""
+        """Node-count-weighted eval means (reference train_dual.py:233-263).
+        On the card each sample is one replay of its shape's CUDA graph
+        (the first of a shape runs eagerly and captures, as a step does);
+        the CPU and testing.eager_steps() run it eagerly.  One sync."""
         if self.eval_ds is None or len(self.eval_ds) == 0:
             return None
         self.model.eval()
-        keys = ("loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f")
-        sums = {k: torch.zeros((), device=self.device) for k in keys}
+        for v in self._eval_sums.values():
+            v.zero_()
+        run = self._eval_program if capture.one_card([self.device]) else self._eval_into
         for sample in self._samples(self.eval_ds, "e", range(len(self.eval_ds))):
-            m = _metrics_of(*self.model(sample), sample, self.cfg)[1]
-            for k, n in (("loss_v", "n_v"), ("error_v", "n_v"),
-                         ("loss_f", "n_f"), ("error_f", "n_f")):
-                sums[k] += m[k] * m[n]
-            sums["n_v"] += m["n_v"]
-            sums["n_f"] += m["n_f"]
-        s = dict(zip(keys, torch.stack([sums[k] for k in keys]).cpu().tolist()))
+            run(sample)
+        s = dict(zip(EVAL_KEYS, torch.stack(
+            [self._eval_sums[k] for k in EVAL_KEYS]).cpu().tolist()))
         # an all-padded eval set has no valid nodes: report zeros, never inf
         if s["n_v"] == 0.0 or s["n_f"] == 0.0:
             print("WARNING: eval pass saw zero valid nodes; metrics are zeros")
@@ -383,7 +406,10 @@ class Trainer:
         self.model.load_state_dict(state)
         if with_opt and opt_state is not None:
             optim.load_state(self.optimizer, opt_state)
-            self._program.graphs.clear()  # they hold the replaced state tensors
+            # they hold the replaced state tensors; the eval graphs go with
+            # them: a restored trainer captures afresh, as a new one
+            self._program.graphs.clear()
+            self._eval_program.graphs.clear()
             if self._sharded_step is not None:
                 self._sharded_step.program.graphs.clear()
         self.epoch = int(scalars.get("epoch", -1)) + 1

@@ -59,8 +59,8 @@ def _close(got, want, rel, what=""):
     assert err <= rel * scale, f"{what}: max err {err:.3e} > {rel} x {scale:.3e}"
 
 
-def _band(subdiv=2, tile=64):
-    m = synth.icosphere(subdiv)
+def _band(subdiv=2, tile=64, mesh=None):
+    m = synth.icosphere(subdiv) if mesh is None else mesh
     ei = graphs.build_vertex_graph_1ring(m.ev_indices, m.n_vertices)
     n = m.n_vertices
     perm = jbanded.rcm_order(ei.astype(np.int64), n)
@@ -118,6 +118,42 @@ def _check_plain_bwd(m, n, c_in, c_out, dtype_name):
         compute_dtype=getattr(torch, dtype_name))
     for name, g, j in zip(("r", "p", "x", "w"), got, want):
         _close(g.numpy(), j, TOL[dtype_name], f"{name} cotangent")
+
+
+@SCHEDULES
+@DTYPES
+def test_plain_bwd_with_far_window_mates(c_in, c_out, dtype_name):
+    """The aggregate is invariant to scaling each node's r by s_i and its p
+    by 1/s_i (ops/banded.factorized_softmax's per-node shifts), and its
+    cotangents scale by 1/s_i and s_i.  On a strip, whose band is narrow,
+    with s_i = 2^k_i growing along the RCM order, neighbours' k differ by
+    at most 12 while two nodes of one window differ by 128 or more: r_i p_j of such a pair passes float32's
+    range, as at level 0 of a whole 1,310,720-face mesh, where the middle
+    shift keeps each half within exp(span / 2) but two far nodes' halves
+    multiply past it (chip_smoke.py --large's boundary sub-band, whose
+    gathered rows lie across the mesh).  The plain backward, which forms
+    the denominator path densely over the window, must give the scaled
+    cotangents of the unscaled inputs (powers of two: exact), not NaN."""
+    m, ei_r, n = _band(mesh=synth.grid_patch(3, 40))  # a strip: a narrow band
+    n_pad = m.shape[0] * m.shape[1]
+    r, p, x, w, gout = _inputs(n_pad, n, c_in, c_out, seed=5)
+    k = np.zeros(n_pad, np.int64)
+    k[:n] = np.rint(1.5 * (np.arange(n) - n // 2))
+    window_pairs = [(i, j) for i in range(n) for j in range(max(i // 64 - 1, 0) * 64, i)]
+    assert np.abs(k[ei_r[0]] - k[ei_r[1]]).max() <= 12
+    assert max(k[i] - k[j] for i, j in window_pairs) >= 128
+    s = np.ldexp(np.float32(1.0), k)[:, None].astype(np.float32)
+    cd = getattr(torch, dtype_name)
+    args = [torch.from_numpy(a) for a in (x, w, m, gout)]
+    plain = banded_cuda.banded_aggregate_bwd_plain(
+        *(torch.from_numpy(a) for a in (r, p)), *args, compute_dtype=cd)
+    scaled = banded_cuda.banded_aggregate_bwd_plain(
+        *(torch.from_numpy(a) for a in (r * s, p / s)), *args, compute_dtype=cd)
+    for name, got, want in zip(("r", "p", "x", "w"), scaled,
+                               (plain[0] / torch.from_numpy(s), plain[1] * torch.from_numpy(s),
+                                *plain[2:])):
+        assert torch.isfinite(got).all(), name
+        _close(got.numpy(), want.numpy(), 1e-6, f"{name} cotangent")
 
 
 @SCHEDULES

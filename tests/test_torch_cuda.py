@@ -16,6 +16,7 @@ value), float32 within 1e-4 (summation order).
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -39,12 +40,12 @@ def cuda_device():
 
 
 def _problem(c_in, c_out, device, subdiv=4, tile=128, heads=9, seed=1,
-             k_extra=None):
+             k_extra=None, mesh=None):
     """An RCM-ordered icosphere vertex graph's band mask and seeded inputs
     (r, p from the factorized softmax, a gout with zero padded rows).  With
     k_extra, the block-sparse mask instead and its blk_idx (int64) after the
     mask, padded by k_extra list entries that repeat the own block."""
-    mesh = synth.icosphere(subdiv)
+    mesh = synth.icosphere(subdiv) if mesh is None else mesh
     ei = graphs.build_vertex_graph_1ring(mesh.ev_indices, mesh.n_vertices)
     n = mesh.n_vertices
     perm = banded.rcm_order(ei.astype(np.int64), n)
@@ -89,6 +90,32 @@ def test_kernel_matches_plain_on_card(c_in, c_out, cuda_device):
         assert sum(banded_cuda.LAUNCHES.values()) == before + 1
         ref = banded_cuda.banded_aggregate_plain(*args, compute_dtype=dt)
         assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@SCHEDULES
+def test_backward_kernel_with_far_window_mates_on_card(c_in, c_out, cuda_device):
+    """On a strip (a narrow band), each node's r scaled by 2^k and its p by
+    2^-k, k growing along the order so that two nodes of one window differ
+    by 128 or more (their r p past float32's range, as at level 0 of a
+    whole 1,310,720-face mesh): the cotangents of #3/#4 and of the plain
+    backward are finite, agree, and are the unscaled cotangents scaled."""
+    r, p, *rest = _problem(c_in, c_out, cuda_device, tile=64, seed=3,
+                           mesh=synth.grid_patch(3, 40))
+    n = 120
+    k = torch.zeros(r.shape[0], device=cuda_device)
+    k[:n] = torch.round(1.5 * (torch.arange(n, device=cuda_device) - n // 2))
+    s = torch.exp2(k)[:, None]
+    base = banded_cuda.banded_aggregate_bwd(r, p, *rest, compute_dtype=torch.float32)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        got = banded_cuda.banded_aggregate_bwd(r * s, p / s, *rest, compute_dtype=dt)
+        want = banded_cuda.banded_aggregate_bwd_plain(r * s, p / s, *rest, compute_dtype=dt)
+        for name, g, ref in zip(("r", "p", "x", "w"), got, want):
+            assert torch.isfinite(g).all() and torch.isfinite(ref).all(), (name, dt)
+            assert float((g - ref).abs().max()) <= tol * float(ref.abs().max()), (name, dt)
+    got = banded_cuda.banded_aggregate_bwd(r * s, p / s, *rest, compute_dtype=torch.float32)
+    for name, g, b in zip(("r", "p", "x", "w"), got, (base[0] / s, base[1] * s, *base[2:])):
+        assert float((g - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
 
 
 @pytest.mark.cuda
@@ -747,3 +774,91 @@ def test_graphed_dp_steps_match_eager(cuda_device):
     assert not e._sharded_step.program.graphs
     assert _metrics(g_hist) == _metrics(e_hist)
     _same_training(g, e)
+
+
+def _eval_set(subdivs=(3,), seeds=(7, 8)):
+    """Noisy copies of icosphere(subdiv) meshes, patches of at most 600
+    faces, as _small_train_set's."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.data import dataset
+
+    pairs = [(synth.add_noise(synth.icosphere(d), 0.2, seed=s), synth.icosphere(d))
+             for d in subdivs for s in seeds]
+    return dataset.InMemoryDataset(pairs, Config().build_config(), submesh_size=600)
+
+
+@pytest.mark.cuda
+def test_graphed_eval_matches_eager_across_a_restore(cuda_device, tmp_path):
+    """Trainer.evaluate on the card replays one CUDA graph of an eval
+    sample's forward and metrics (one per plan: a preloaded run has one);
+    over 3 epochs of Trainer.fit, the third after Trainer.restore of the
+    second's ckpt_last.pkl, which drops the step's and the eval graphs, the
+    eval metrics are bit-equal to the eager pass's, as are the weights."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.testing import eager_steps
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    ds, ev = _small_train_set(), _eval_set()
+    runs = {}
+    for mode in ("graphed", "eager"):
+        run_dir = tmp_path / mode
+        run_dir.mkdir()
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            tr = Trainer(Config(seed=0, max_epoch=2), ds, ev, str(run_dir), device=cuda_device)
+            hist = []
+            tr.fit(on_epoch=lambda t, m, e: hist.append(e))
+            graphs = (len(tr._program.graphs), len(tr._eval_program.graphs))
+            replays = [g.replays for g in tr._eval_program.graphs.values()]
+            tr.restore(str(run_dir / "ckpt_last.pkl"))
+            assert not tr._program.graphs and not tr._eval_program.graphs
+            tr.cfg = tr.cfg.with_updates(max_epoch=3)
+            tr.fit(on_epoch=lambda t, m, e: hist.append(e))
+            graphs += (len(tr._program.graphs), len(tr._eval_program.graphs))
+        runs[mode] = (tr, hist, graphs, replays)
+    (g, g_hist, g_graphs, g_replays), (e, e_hist, e_graphs, _) = runs["graphed"], runs["eager"]
+    assert g_graphs == (1, 1, 1, 1) and e_graphs == (0, 0, 0, 0)
+    assert g_replays == [2 * len(ev) - 1]  # the first sample warms up and captures
+    assert len(g_hist) == 3 and g_hist == e_hist, (g_hist, e_hist)
+    for a, b in zip(g.model.parameters(), e.model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_one_eval_graph_per_plan(cuda_device):
+    """A preloaded run pads every eval sample to one plan: one eval graph.
+    Streamed over size buckets, the step and the eval pass each keep one
+    graph per bucket plan they met."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.train.trainer import Trainer
+
+    ds = _small_train_set()
+    ev = _eval_set((2, 3), seeds=(7,))
+    tr = Trainer(Config(seed=0), ds, ev, device=cuda_device)
+    tr.evaluate()
+    tr.evaluate()
+    (graph,) = tr._eval_program.graphs.values()
+    assert graph.replays == 2 * len(ev) - 1
+    cfg = Config(seed=0, preload=False, buckets_growth=1.5)
+    streamed = Trainer(cfg, _small_train_set(), _eval_set((2, 3), seeds=(7,)), device=cuda_device)
+    first = streamed.evaluate()
+    assert streamed.evaluate() == first
+    plans = {streamed.eval_ds.bucket_of[i] for i in range(len(streamed.eval_ds))}
+    assert len(plans) == 2 and len(streamed._eval_program.graphs) == len(plans)
+
+
+@pytest.mark.cuda
+def test_short_campaign_lowers_the_eval_error(cuda_device, tmp_path):
+    """Two epochs of the campaign (train_synthetic_campaign.train) on its
+    short corpus, 24 train and 6 eval samples, the eval pass replayed: the
+    eval normal error falls, one step graph and one eval graph."""
+    from geobignn_tpu_torch.examples import train_synthetic_campaign as tsc
+
+    (train_pairs, _), (eval_pairs, _) = tsc.corpus(short=True)
+    cfg = tsc.campaign_config(2, log_dir=str(tmp_path))
+    train_ds, eval_ds = tsc.datasets(cfg, train_pairs, eval_pairs)
+    hist = []
+    tr, run_dir, best = tsc.train(cfg, train_ds, eval_ds, device=cuda_device,
+                                  on_epoch=lambda t, m, e: hist.append(e["error_f"]))
+    assert len(hist) == 2 and hist[1] < hist[0] and best == hist[1]
+    assert len(tr._program.graphs) == len(tr._eval_program.graphs) == 1
+    assert os.path.exists(os.path.join(run_dir, "ckpt_best.pkl"))
