@@ -5,6 +5,7 @@
     python3 chip_smoke.py --large       # the 1,310,720-face mesh (see the end)
     python3 chip_smoke.py --large-halo  # its 8-part halo step and serving (the end)
     python3 chip_smoke.py --campaign    # train to the JAX package's accuracy (the end)
+    python3 chip_smoke.py --probes      # the measuring scripts of examples/ (the end)
 
 Phases, each printing its lines; any failure raises and the script exits
 non-zero without the final result line:
@@ -269,6 +270,12 @@ non-zero without the final result line:
      plain versions; final_eval with the best checkpoint on 2 held-out
      meshes, #7 held against its plain version; the best checkpoint's
      predict_mesh against device="cpu" and against the table convs;
+ 22. two of the probes (geobignn_tpu_torch/examples/, see --probes):
+     kernel_probe at its default shape (N 165,888, tile 384, 64 -> 32, 9
+     heads; `[kernel-probe]` lines), its calls held against their plain
+     versions (`[probe-kernel]` lines), and halo_scaling_report's host half
+     at subdiv 5 (4, 8, 16 parts; `[halo-scaling]` lines) beside phase 7's
+     graphed 20,000-face step;
  10. one JSON line of the nine kernels, then the result line.  An
      aggregate's `launches` is what the device ran in the main path's runs
      (a profile, by kernel name: each launch runs one row_walk_kernel,
@@ -279,13 +286,19 @@ non-zero without the final result line:
      large shapes have their `[large-kernel]` lines); nearest's is its wrapper's count in the evaluation, in [viz]
      and in [campaign-short]'s final_eval, which no graph holds.
 
---large runs, after the build, the same [large] step on the 1,310,720-face
+--large runs, after the build, `[large-witness]`: the witness of the bf16
+logits' deviation (ops/banded.factorized_softmax forms x @ u in float32),
+the forward of add_noise(icosphere(6), 0.2, seed=0) whole under the seed-0
+weights with bf16 against float32 activations on the card, positions and
+normals each no larger than the JAX package's own distance on its CPU
+(JAX_WHOLE_BF16); then the same [large] step on the 1,310,720-face
 add_noise(icosphere(8), 0.2, seed=0) of examples/run_1m.py (every level a
 band with a sub-band; 4 vertex-head and 8 facet-head row chunks) under
 Config(precision="bfloat16"), as the JAX package runs it, then under
 float32 activations (each what [large] does: 3 steps eager against 3
 graphed, bit-equal; timed, counted, peak memory; graphed against eager;
-every #1-#4 call against its plain version; the forward against the CPU;
+every #1-#4 call against its plain version; the forward against the CPU,
+and each conv's output card against CPU in the forward's order;
 `[large-8-bf16]`, `[large-8]` lines), then serves the 327,680-face and the 1,310,720-face meshes through
 predict_dir_body (patches of sub_size faces, one graph of the merged plan,
 60 updates, the .obj written) and scores each with eval_denoising_result
@@ -348,11 +361,28 @@ table convs; `[halo-conv]`, geobignn_tpu_torch/examples/halo_convergence.py
 single-device and over 8 parts on cuda:0 for 60 epochs, the curves every 5
 epochs and compare()'s summary beside docs/halo_conv/summary.json, held to
 HALO_CONV_REL_GAP and HALO_CONV_OF_JAX, and the single-device run again
-with its aggregates in float32 against the same halo curve.  A missed accuracy bound fails the
+with its aggregates in float32 against the same halo curve; then the pair
+from the JAX trainers' seed-7 initial weights (examples/data/
+halo_conv_jax_init.npz), held to the same bounds, and the pairs from the
+port's weights at seeds 8-11, each rel_gap and their min, median and max
+over seeds 7-11.  A missed accuracy bound fails the
 run after every phase has printed.  The modules' own output, the run's
 metrics.jsonl and campaign_results.json and the halo curves go to
 log/campaign/.  It prints its own kernels line (the aggregates the
 counted epoch ran, and #7) and the same result line.
+
+--probes runs the measuring scripts of geobignn_tpu_torch/examples/ (the
+twins of the JAX repo's examples/ probes) on cuda:0 at the JAX scripts'
+default shapes (PROBE_RUNS): kernel_probe (banded and block-sparse at K
+9, each at 64 -> 32 and 32 -> 64: all six aggregates), trace_step
+([large]'s 327,680-face step, and run_1m.py's 8-part halo step of
+1,310,720 faces), profile_step, profile_large, probe_serial,
+probe_f1_327k, bench_dynamic, probe_dynamic and halo_scaling_report, each
+printing its rows; every aggregate call each made, held against its plain
+version right after it (`[probes-kernel]`, `[probes-kernel-bwd]` lines),
+which frees its recorded inputs before the next; its own kernels
+line (launches: the wrappers' counts, eager calls and captures) and the
+same result line.
 
 Tolerances: kernel vs plain on identical inputs, bf16 compute: 2e-2 of
 max|out| (both round the same operands to bf16, but a D summed in another
@@ -436,6 +466,13 @@ HALO_BF16_NORMAL_TOL = 7.7e-2  # HALO_WITNESS * JAX_HALO_BF16_NORMALS
 # 4.4e-2, 6.2e-2, 1.689e-1 at icosphere(3)-(6)), so at 1,310,720 faces this
 # is the tighter bound
 LARGE_HALO_BF16_NORMAL_TOL = 2.11e-1
+# --large's witness of the bf16 logits' deviation (ops/banded.factorized_softmax
+# forms x @ u in float32): the JAX package's own bf16-vs-float32 forward
+# distance on add_noise(icosphere(6), 0.2, seed=0) whole, the largest whole
+# mesh its CPU runs in a few minutes, under the seed-0 weights (its CPU run:
+# python tests/test_torch_bf16_coords.py 6); the card's must be no larger
+WITNESS_SUBDIV = 6
+JAX_WHOLE_BF16 = {"positions_mel": 3.9062e-3, "normals": 3.9429e-1}
 FWD = ("aggregate_first", "transform_first")
 AGGREGATES = tuple(pre + k + suf for suf in ("", "_bwd") for pre in ("", "bs_") for k in FWD)
 KERNELS = AGGREGATES + ("nearest",)
@@ -548,63 +585,6 @@ def _cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _work(r, p, x, w, m, tf, blk_idx=None):
-    """(bytes, operations this run's data needs, operations counted densely
-    over the window as the TPU wrapper's cost estimate does).  The bytes are
-    r, p, x, w and out in f32, the int8 mask and, block-sparse, blk_idx."""
-    n, c_in = x.shape
-    heads, c_out = r.shape[1], w.shape[2]
-    win = m.shape[2]
-    k = heads * (c_out if tf else c_in)
-    nnz = int(m.count_nonzero())
-    byts = 4 * (r.numel() + p.numel() + x.numel() + w.numel() + n * c_out) + m.numel()
-    if blk_idx is not None:
-        byts += blk_idx.numel() * blk_idx.element_size()
-    ops = 2 * nnz * (heads + k) + n * k  # D and A·V over the set slots; r scale
-    if tf:
-        ops += 2 * n * heads * c_out * c_in + n * k  # W2 x; head sum
-    else:
-        ops += n * k + 2 * n * k * c_out  # p x; W contraction
-    if tf:
-        dense = 2 * n * win * (heads * (c_out + 1) + heads * c_in / 3)
-    else:
-        dense = 2 * n * win * (heads * (c_in + 1) + heads * c_out / 3)
-    return byts, ops, int(dense)
-
-
-def _work_bwd(r, p, x, w, m, tf, blk_idx=None):
-    """(bytes, operations this run's data needs, dense operations) of the
-    backward: inputs r, p, x, w, m, gout (and blk_idx) and outputs r̄, p̄, x̄
-    and the per-block W̄ partials, each moved once; per set mask slot D, the
-    window products z, K and a, and the r̄ / p̄ denominator parts, plus the
-    per-node products; densely, the five window products of _bwd_kernel over
-    the whole window and the two C_out (or C_in) products."""
-    n, c_in = x.shape
-    heads, c_out = r.shape[1], w.shape[2]
-    n_blk, _, win = m.shape
-    cv = c_out if tf else c_in
-    kk = heads * cv
-    cr = c_in if tf else c_out
-    nnz = int(m.count_nonzero())
-    byts = (4 * (r.numel() + p.numel() + x.numel() + w.numel() + n * c_out)
-            + m.numel() + 4 * (2 * n * heads + n * c_in + n_blk * kk * cr))
-    if blk_idx is not None:
-        byts += blk_idx.numel() * blk_idx.element_size()
-    ops = nnz * (6 * kk + 6 * heads)
-    if tf:  # Y, V, G, gz*z, y*a, yb, x̄ = yb W2, W̄ = yb^T x
-        ops += n * (2 * kk * c_in + 8 * kk + 2 * kk * c_in) + 2 * n * kk * c_in
-        dense = 2 * n * win * (3 * kk + 3 * heads) + 3 * 2 * 3 * n * kk * c_in
-    else:  # V, gy, G, zr, gy*z, x̄, p̄ direct, W̄ = zr^T gout
-        ops += n * (9 * kk + 2 * kk * c_out) + 2 * n * kk * c_out
-        dense = 2 * n * win * (3 * kk + 3 * heads) + 4 * n * kk * c_out
-    return byts, ops, int(dense)
-
-
-def _bound_ms(byts, ops):
-    t_b, t_o = byts / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def _kernel_entry(name, rows, launches):
@@ -940,6 +920,8 @@ def check_forward(key, ent, reps=20, tag="kernel"):
     as a `[tag]` line."""
     import torch
 
+    from geobignn_tpu_torch.train.roofline import aggregate_work, bound_ms
+
     name, args, cd = key[0], ent["args"], ent["cd"]
     kernel, plain = _functions(name)
     tf = name.endswith("transform_first")
@@ -955,9 +937,9 @@ def check_forward(key, ent, reps=20, tag="kernel"):
     ms = _cuda_ms(lambda: kernel(*args, compute_dtype=cd), reps)
     plain_ms = _cuda_ms(lambda: plain(*args, compute_dtype=cd), 3)
     parts = _parts_ms(name, args, cd)
-    byts, ops, dense = _work(*args[:5], tf, *args[5:])
-    bound, by = _bound_ms(byts, ops)
-    dense_bound, _ = _bound_ms(byts, dense)
+    byts, ops, dense = aggregate_work(*args[:5], tf, *args[5:])
+    bound, by = bound_ms(byts, ops)
+    dense_bound, _ = bound_ms(byts, dense)
     n, c_in = args[2].shape
     row = dict(kernel=name, n=n, tile=args[4].shape[1], window=args[4].shape[2],
                heads=args[0].shape[1], c_in=c_in, c_out=args[3].shape[2], calls=ent["calls"],
@@ -976,6 +958,8 @@ def check_backward(key, ent, gen, reps=10, tag="kernel-bwd"):
     timed over `reps` calls; printed as a `[tag]` line."""
     import torch
 
+    from geobignn_tpu_torch.train.roofline import aggregate_work_bwd, bound_ms
+
     name, cd = key[0], ent["cd"]
     kernel, plain = _functions(name)
     tf = name.endswith("transform_first_bwd")
@@ -993,9 +977,9 @@ def check_backward(key, ent, gen, reps=10, tag="kernel-bwd"):
     ms = _cuda_ms(lambda: kernel(*args, compute_dtype=cd), reps)
     plain_ms = _cuda_ms(lambda: plain(*args, compute_dtype=cd), 3)
     parts = _parts_ms(name, args, cd)
-    byts, ops, dense = _work_bwd(*args[:5], tf, *args[5:-1])
-    bound, by = _bound_ms(byts, ops)
-    dense_bound, _ = _bound_ms(byts, dense)
+    byts, ops, dense = aggregate_work_bwd(*args[:5], tf, *args[5:-1])
+    bound, by = bound_ms(byts, ops)
+    dense_bound, _ = bound_ms(byts, dense)
     n, c_in = args[2].shape
     row = dict(kernel=name, n=n, tile=args[4].shape[1], window=args[4].shape[2],
                heads=args[0].shape[1], c_in=c_in, c_out=args[3].shape[2], calls=ent["calls"],
@@ -1500,24 +1484,14 @@ def union_phase(torch, np, kind):
 
 def _large_host(subdiv):
     """bench.py's host build of one whole add_noise(icosphere(subdiv), 0.2,
-    seed=0) mesh as a batch-1 union sample under Config(granularity=256):
-    build_raw, build_dual_sample, widths_for with bands, attach_tables.
-    Returns the meshes, the sample (numpy), its real vertex and facet rows,
-    the real edge messages of one step and the build's seconds."""
-    from geobignn_tpu_torch.config import Config
-    from geobignn_tpu_torch.data import batching, builder, dataset, synth
+    seed=0) mesh as a batch-1 union sample under Config(granularity=256)
+    (examples/_sample.whole_sample: build_raw, build_dual_sample,
+    widths_for with bands, attach_tables).  Returns the meshes, the sample
+    (numpy), its real vertex and facet rows, the real edge messages of one
+    step and the build's seconds."""
+    from geobignn_tpu_torch.examples import _sample
 
-    bc = Config(seed=0, granularity=256).build_config()
-    clean = synth.icosphere(subdiv)
-    noisy = synth.add_noise(clean, 0.2, seed=0)
-    t0 = time.perf_counter()
-    bv, bf, meta = builder.build_raw(noisy, clean, bc)
-    single, _ = builder.build_dual_sample(noisy, clean, bc)
-    widths = builder.widths_for(bv, bf, meta["fv_indices"], with_bands=True)
-    sample = builder.attach_tables(batching.union_batch([single]), widths)
-    return dict(subdiv=subdiv, noisy=noisy, clean=clean, sample=sample, n_v=bv.n_nodes,
-                n_f=bf.n_nodes, host_s=time.perf_counter() - t0,
-                msgs=dataset.branch_messages(bv) + dataset.branch_messages(bf))
+    return _sample.whole_sample.__wrapped__(subdiv)  # uncached: the caller frees it
 
 
 def _large_host_started(subdiv):
@@ -1596,6 +1570,33 @@ LARGE_LEVELS = {
     ("v", 2): ((36, 384, 1152), False), ("f", 0): ((1281, 256, 768), True),
     ("f", 1): ((352, 256, 768), True), ("f", 2): ((100, 256, 768), True),
 }
+
+
+@contextlib.contextmanager
+def _conv_outputs(model):
+    """While open, every FeaStConv of the model's two U-Nets keeps its last
+    output, in float32 on the host, under "v.l_conv1" and so on, in the
+    order the forward runs them."""
+    from geobignn_tpu_torch.models.dual_gnn import CONV_SCHEDULE
+
+    outs: dict = {}
+    hooks = [getattr(getattr(model, "gnn_" + side), name).register_forward_hook(
+        lambda mod, args, out, key=f"{side}.{name}": outs.__setitem__(
+            key, out.detach().float().cpu()))
+        for side in ("v", "f") for name, *_ in CONV_SCHEDULE]
+    try:
+        yield outs
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _per_conv(card, cpu) -> str:
+    """Each conv's card-vs-CPU output distance over the CPU output's max,
+    in the order the forward ran them."""
+    rel = {k: float((card[k] - cpu[k]).abs().max()) / max(float(cpu[k].abs().max()), 1e-30)
+           for k in cpu}
+    return ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
 
 
 def large_phase(torch, np, host, kind, precision="float32", failures=None):
@@ -1719,7 +1720,7 @@ def large_phase(torch, np, host, kind, precision="float32", failures=None):
                              else tr._captured_step(sample, tr._rotation(i)))
     print(f"[{tag}] one step, CUDA events: {_both(times)}")
     state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
-    with torch.no_grad():
+    with torch.no_grad(), _conv_outputs(tr.model) as convs_g:
         vp_g, n_g = (t.float().cpu().numpy() for t in tr.model(sample))
     del tr, graph, sample
     _free(torch)
@@ -1753,7 +1754,7 @@ def large_phase(torch, np, host, kind, precision="float32", failures=None):
                     device="cpu")
     model.load_state_dict(state)
     t1 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), _conv_outputs(model) as convs_c:
         vp_c, n_c = (t.float().numpy() for t in model(union.to("cpu")))
     cpu_s = time.perf_counter() - t1
     noisy = host["noisy"]  # the sample's coordinates are normalized
@@ -1764,6 +1765,9 @@ def large_phase(torch, np, host, kind, precision="float32", failures=None):
     print(f"[{tag}] the forward (trained weights) with device=\"cpu\" (plain versions) "
           f"in {cpu_s:.1f} s; card vs CPU: positions {e_pos:.3e} mean edge lengths (tol "
           f"{POS_TOL_MEL}), normals {e_n:.3e} (tol {NORMAL_TOL})")
+    print(f"[{tag}] per conv, card vs CPU over the CPU output's max: "
+          + _per_conv(convs_g, convs_c))
+    del convs_g, convs_c
     assert np.isfinite(vp_g).all() and np.isfinite(n_g).all()
     if failures is None:
         assert e_pos <= POS_TOL_MEL and e_n <= NORMAL_TOL
@@ -1876,6 +1880,43 @@ def large_serve_phase(torch, np, pred, subdiv, kind):
     return {"nearest": nn}
 
 
+def large_witness_phase(torch, np, state, kind, failures):
+    """[large-witness]: the witness of the bf16 logits' deviation.  The
+    forward of add_noise(icosphere(WITNESS_SUBDIV), 0.2, seed=0) whole under
+    `state` (the seed-0 weights) on the card with bf16 activations against
+    float32 activations (bf16 heads in both): the positions' largest
+    distance in mean edge lengths and the normals', each no larger than the
+    JAX package's own (JAX_WHOLE_BF16, its CPU run)."""
+    from geobignn_tpu_torch import geometry
+    from geobignn_tpu_torch.models.dual_gnn import DualGNN
+
+    tag = "large-witness"
+    host = _large_host(WITNESS_SUBDIV)
+    sample, noisy = host["sample"].to("cuda"), host["noisy"]
+    mel = (geometry.mean_edge_length_np(noisy.points, noisy.ev_indices)
+           * float(np.asarray(host["sample"].scale).reshape(-1)[0]))
+    outs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        model = DualGNN(compute_dtype=dt, fc_dtype=torch.bfloat16, device="cuda")
+        model.load_state_dict(state)
+        with torch.no_grad():
+            outs[dt] = [t.float().cpu().numpy() for t in model(sample)]
+        del model
+    (vb, nb), (vf, nf) = outs[torch.bfloat16], outs[torch.float32]
+    got = {"positions_mel": float(np.abs(vb[:host["n_v"]] - vf[:host["n_v"]]).max()) / mel,
+           "normals": float(np.abs(nb[:host["n_f"]] - nf[:host["n_f"]]).max())}
+    ok = all(got[k] <= JAX_WHOLE_BF16[k] for k in got)
+    print(f"[{tag}] add_noise(icosphere({WITNESS_SUBDIV}), 0.2, seed=0) whole "
+          f"({noisy.n_faces} faces), the seed-0 weights: bf16 against float32 activations "
+          f"on the card {json.dumps(got)}; the JAX package's own on the CPU "
+          f"{json.dumps(JAX_WHOLE_BF16)}: " + ("no larger (met)" if ok else "MISSED")
+          + f"; card {kind}")
+    if not ok:
+        failures.append(f"[{tag}] {got} against the JAX package's {JAX_WHOLE_BF16}")
+    del sample, outs
+    _free(torch)
+
+
 def large_main(torch, np, kind, t_start, state):
     """python3 chip_smoke.py --large: the 1,310,720-face icosphere(8) sample
     of examples/run_1m.py through large_phase under
@@ -1885,9 +1926,11 @@ def large_main(torch, np, kind, t_start, state):
     from geobignn_tpu_torch.config import Config
     from geobignn_tpu_torch.infer import predict
 
+    failures: list = []  # the card-vs-CPU forward checks fail the run at its end
+    large_witness_phase(torch, np, state, kind, failures)
+    _lap(t_start, "[large-witness]")
     host = _large_host(8)
     _lap(t_start, "the icosphere(8) host build")
-    failures: list = []  # the card-vs-CPU forward checks fail the run at its end
     for precision in ("bfloat16", "float32"):
         large_phase(torch, np, host, kind, precision=precision, failures=failures)
         _lap(t_start, f"[large-8{'-bf16' if precision == 'bfloat16' else ''}]")
@@ -4258,28 +4301,56 @@ def campaign_short_phase(torch, np, kind):
     return counts
 
 
-def halo_conv_phase(torch, log, kind, failures):
-    """[halo-conv]: halo_convergence.run single-device and with 8 parts,
-    every part on cuda:0 (each halo step and eval forward one CUDA graph),
-    HALO_CONV_EPOCHS epochs each, the curves every 5 epochs and compare()'s
-    summary beside the JAX run's (docs/halo_conv/); misses of the bounds
-    go to `failures`.  Then the single-device run once more with its
-    aggregates in float32, and compare()'s summary of that against the
-    same halo curve."""
-    from geobignn_tpu_torch.examples import halo_convergence as hc
-    from geobignn_tpu_torch.testing import aggregates_in
+HALO_CONV_MORE_SEEDS = (8, 9, 10, 11)  # [halo-conv]'s spread: own-init pairs at these
 
-    tag = "halo-conv"
-    out_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_")
+
+def _halo_pair(torch, hc, log, seed, out_dir, init=None):
+    """halo_convergence.run single-device and with 8 parts on cuda:0 from
+    `seed` (and `init`'s weights, if given) into out_dir; compare()'s
+    summary and each run's seconds."""
     secs = {}
     for mode in ("single", "halo"):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
-            hc.run(mode, HALO_CONV_EPOCHS, HALO_CONV_SEED, out_dir, "cuda")
+            hc.run(mode, HALO_CONV_EPOCHS, seed, out_dir, "cuda", init)
         secs[mode] = time.perf_counter() - t0
         _free(torch)
     with contextlib.redirect_stdout(log):
-        summary = hc.compare(out_dir)
+        return hc.compare(out_dir), secs
+
+
+def _halo_bounds(summary, ref, what):
+    """The misses of HALO_CONV_REL_GAP and HALO_CONV_OF_JAX by one pair."""
+    missed = [] if summary["rel_gap"] <= HALO_CONV_REL_GAP else [
+        f"{what}: halo rel_gap {summary['rel_gap']} > {HALO_CONV_REL_GAP}"]
+    for m in ("single", "halo"):
+        bound = HALO_CONV_OF_JAX * ref[f"{m}_final_mean"]
+        if not summary[f"{m}_final_mean"] <= bound:
+            missed.append(f"{what}: {m}_final_mean {summary[f'{m}_final_mean']} > {bound:.4f}")
+    return missed
+
+
+def halo_conv_phase(torch, log, kind, failures):
+    """[halo-conv]: halo_convergence.run single-device and with 8 parts,
+    every part on cuda:0 (each halo step and eval forward one CUDA graph),
+    HALO_CONV_EPOCHS epochs each: (a) from the port's seed-7 weights, the
+    curves every 5 epochs and compare()'s summary beside the JAX run's
+    (docs/halo_conv/); (b) from the JAX trainers' seed-7 initial weights
+    (halo_convergence.JAX_INIT), the weights the JAX run started from;
+    both held to HALO_CONV_REL_GAP and HALO_CONV_OF_JAX, misses to
+    `failures`.  Then the single-device run of (a) once more with its
+    aggregates in float32, compare()'s summary of that against (a)'s halo
+    curve; and (c) the own-init pairs at HALO_CONV_MORE_SEEDS, each pair's
+    rel_gap and the min, median and max over seeds 7-11 (not bounded: the
+    statistic's spread)."""
+    from geobignn_tpu_torch.examples import halo_convergence as hc
+    from geobignn_tpu_torch.testing import aggregates_in
+
+    tag = "halo-conv"
+    with open(os.path.join("docs", "halo_conv", "summary.json")) as f:
+        ref = json.load(f)
+    out_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_")
+    summary, secs = _halo_pair(torch, hc, log, HALO_CONV_SEED, out_dir)
     # whether the single-device run's bf16 aggregate operands move the gap
     # (the halo run's table convs compute in float32)
     f32_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_f32_")
@@ -4301,19 +4372,32 @@ def halo_conv_phase(torch, log, kind, failures):
         print(f"[{tag}] epoch {e}: eval error_f single {mine['single'][e]:.3f}, halo(8) "
               f"{mine['halo'][e]:.3f} (JAX {theirs['single'][e]:.3f} / "
               f"{theirs['halo'][e]:.3f})")
-    with open(os.path.join(ref_dir, "summary.json")) as f:
-        ref = json.load(f)
-    print(f"[{tag}] summary {json.dumps(summary)}; JAX {json.dumps(ref)}; single "
-          f"{secs['single']:.1f} s, halo {secs['halo']:.1f} s (8 parts on cuda:0); card {kind}")
+    print(f"[{tag}] (a) seed {HALO_CONV_SEED}, the port's initial weights: summary "
+          f"{json.dumps(summary)}; JAX {json.dumps(ref)}; single {secs['single']:.1f} s, halo "
+          f"{secs['halo']:.1f} s (8 parts on cuda:0); card {kind}")
     print(f"[{tag}] the single-device run again with its aggregates in float32 "
           f"(testing.aggregates_in): {json.dumps(f32)}")
-    missed = [] if summary["rel_gap"] <= HALO_CONV_REL_GAP else [
-        f"halo rel_gap {summary['rel_gap']} > {HALO_CONV_REL_GAP}"]
-    for m in ("single", "halo"):
-        bound = HALO_CONV_OF_JAX * ref[f"{m}_final_mean"]
-        if not summary[f"{m}_final_mean"] <= bound:
-            missed.append(f"{m}_final_mean {summary[f'{m}_final_mean']} > {bound:.4f}")
-    print(f"[{tag}] bounds: rel_gap <= {HALO_CONV_REL_GAP}, final means <= "
+    missed = _halo_bounds(summary, ref, "(a)")
+
+    jax_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_jaxinit_")
+    jax_init, jsecs = _halo_pair(torch, hc, log, HALO_CONV_SEED, jax_dir, hc.JAX_INIT)
+    print(f"[{tag}] (b) seed {HALO_CONV_SEED}, the JAX trainers' initial weights "
+          f"({os.path.relpath(hc.JAX_INIT)}): summary {json.dumps(jax_init)}; JAX "
+          f"{json.dumps(ref)}; single {jsecs['single']:.1f} s, halo {jsecs['halo']:.1f} s")
+    missed += _halo_bounds(jax_init, ref, "(b)")
+    shutil.rmtree(jax_dir, ignore_errors=True)
+
+    gaps = {HALO_CONV_SEED: summary["rel_gap"]}
+    for seed in HALO_CONV_MORE_SEEDS:
+        seed_dir = tempfile.mkdtemp(prefix=f"gbn_halo_conv_s{seed}_")
+        gaps[seed] = _halo_pair(torch, hc, log, seed, seed_dir)[0]["rel_gap"]
+        shutil.rmtree(seed_dir, ignore_errors=True)
+        print(f"[{tag}] (c) seed {seed}, the port's initial weights: rel_gap {gaps[seed]}")
+    vals = sorted(gaps.values())
+    print(f"[{tag}] rel_gap over seeds {min(gaps)}-{max(gaps)} (own initial weights): "
+          f"{json.dumps(gaps)}; min {vals[0]}, median {vals[len(vals) // 2]}, max "
+          f"{vals[-1]}; from the JAX weights {jax_init['rel_gap']}")
+    print(f"[{tag}] bounds, (a) and (b): rel_gap <= {HALO_CONV_REL_GAP}, final means <= "
           f"{HALO_CONV_OF_JAX}x the JAX run's: " + ("met" if not missed else
                                                    "MISSED: " + "; ".join(missed)))
     failures += missed
@@ -4374,11 +4458,86 @@ def campaign_main(torch, np, kind, t_start):
     return 0
 
 
+# --probes: the measuring scripts of geobignn_tpu_torch/examples/ (the JAX
+# repo's examples/ probes' twins) at the JAX scripts' default shapes, as
+# (module, arguments); kernel_probe in both schedules, banded and
+# block-sparse; trace_step also traces run_1m.py's 8-part halo step, first,
+# on a card nothing else holds (its eager warm-up peaks near 20 GiB beside
+# a graph pool of 21)
+PROBE_RUNS = (
+    ("trace_step", ["--subdiv", "8", "--halo-parts", "8",
+                    "--trace-dir", os.path.join("log", "trace_step_halo8")]),
+    ("kernel_probe", []),
+    ("kernel_probe", ["--c-in", "32", "--c-out", "64"]),
+    ("kernel_probe", ["--blocksparse", "9"]),
+    ("kernel_probe", ["--blocksparse", "9", "--c-in", "32", "--c-out", "64"]),
+    ("trace_step", []),
+    ("profile_step", []),
+    ("profile_large", []),
+    ("probe_serial", []),
+    ("probe_f1_327k", []),
+    ("bench_dynamic", []),
+    ("probe_dynamic", []),
+    ("halo_scaling_report", []),
+)
+
+
+def run_probes(torch, runs, tag):
+    """Each (module, arguments) of `runs` on cuda:0, then every aggregate
+    call it made (the first at each shape, recorded) against its plain
+    version on the card (check_forward / check_backward, the script's
+    tolerances; `[tag-kernel]` lines), its recorded inputs freed before the
+    next run.  Returns the rows and each run's seconds."""
+    import importlib
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, secs = [], []
+    for name, argv in runs:
+        mod = importlib.import_module(f"geobignn_tpu_torch.examples.{name}")
+        fwd, bwd = {}, {}
+        t0 = time.perf_counter()
+        with _recording(fwd), _recording(bwd, backward=True):
+            mod.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        print(f"[probes] {name} {' '.join(argv)}: {secs[-1]:.1f} s")
+        _free(torch)
+        for key in sorted(fwd):
+            rows.append(check_forward(key, fwd.pop(key), reps=5, tag=f"{tag}-kernel"))
+            torch.cuda.empty_cache()
+        for key in sorted(bwd):
+            rows.append(check_backward(key, bwd.pop(key), gen, reps=5,
+                                       tag=f"{tag}-kernel-bwd"))
+            torch.cuda.empty_cache()
+    return rows, secs
+
+
+def probes_main(torch, kind, t_start):
+    """python3 chip_smoke.py --probes: PROBE_RUNS, every aggregate call they
+    made held against its plain version, and a kernels line of those."""
+    from geobignn_tpu_torch.ops import banded_cuda
+
+    banded_cuda.reset_launches()
+    rows, secs = run_probes(torch, PROBE_RUNS, "probes")
+    launches = dict(banded_cuda.LAUNCHES)
+    _lap(t_start, f"the probes ({sum(secs):.1f} s) and their kernel checks")
+    kernels = [_kernel_entry(name, [r for r in rows if r["kernel"] == name], launches[name])
+               for name in AGGREGATES if launches[name]]
+    print(f"[probes] the wrappers counted {_nonzero(launches)} (eager calls and captures; "
+          f"a graph's replays are not counted)")
+    assert kernels and all(any(r["kernel"] == k for r in rows) for k in AGGREGATES
+                           if launches[k])
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--large"], ["--large-halo"], ["--campaign"]):
-        print("usage: python3 chip_smoke.py [--large | --large-halo | --campaign]",
+    if argv not in ([], ["--large"], ["--large-halo"], ["--campaign"], ["--probes"]):
+        print("usage: python3 chip_smoke.py [--large | --large-halo | --campaign | --probes]",
               file=sys.stderr)
         return 2
     # 1. the card ---------------------------------------------------------
@@ -4424,6 +4583,8 @@ def main(argv) -> int:
         return large_halo_main(torch, np, kind, t_start, state, hosts)
     if argv == ["--campaign"]:
         return campaign_main(torch, np, kind, t_start)
+    if argv == ["--probes"]:
+        return probes_main(torch, kind, t_start)
     # 3. the serving path, every level banded ---------------------------------
     cfg = Config()
     pred = predict.Predictor(cfg, state, device="cuda")
@@ -4566,6 +4727,7 @@ def main(argv) -> int:
         train = train_phase(torch, np, seeds, overfit=not prefix, kind=kind)
         if not prefix:
             patches = train["train_ds"]  # phase 17's
+            patch_step_ms = train["graph"]["graphed"]["median_ms"]  # phase 22's
         # 11-12, 14: the modes of this training set's patches
         more.append(bf16_phase(torch, np, train["train_ds"], seeds, train["graph"], kind))
         if not prefix:
@@ -4683,6 +4845,14 @@ def main(argv) -> int:
     icp_phase(torch, np, kind)
     viz_launches = viz_phase(torch, np, mesh, vp_g, kind)
     _lap(t_start, "phases 19-20")
+    # 22. two of the probes: kernel_probe at its default shape, its calls
+    # against their plain versions; halo_scaling_report's host half at
+    # subdiv 5 beside phase 7's graphed 20,000-face step
+    run_probes(torch, [("kernel_probe", [])], "probe")
+    from geobignn_tpu_torch.examples import halo_scaling_report
+
+    halo_scaling_report.main(["--cells", "5:4,8,16", "--step-ms", f"{patch_step_ms:.3f}"])
+    _lap(t_start, "phase 22")
     recs = PROFILE_WINDOWS
     print(f"[profile] {len(recs)} counted runs: launch calls without a kernel record "
           f"{sum(r['unrecorded'] for r in recs)}, of them in the primers "

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import torch
 import torch.distributed as dist
@@ -137,6 +138,10 @@ class Graph:
         self.inputs = static_copy(inputs)
         self.key = signature(inputs)
         before = dict(LAUNCHES)
+        # a trainer and its graphs are a reference cycle: collected while this
+        # capture runs, a dead graph's destruction invalidates it (torch's
+        # capture no longer collects first), so collect before it begins
+        gc.collect()
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: a prefetch worker (data/prefetch.py) goes on copying
         # the next samples on its own stream while this thread captures

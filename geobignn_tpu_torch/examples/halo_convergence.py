@@ -12,7 +12,8 @@ On the card all 8 parts sit on the one device given (every halo step and
 eval forward one CUDA graph); on the CPU, device="cpu".
 
 Run:  python -m geobignn_tpu_torch.examples.halo_convergence --out_dir DIR
-      (on the CPU at a small size: --device cpu --epochs 1)
+      (on the CPU at a small size: --device cpu --epochs 1; from the JAX
+      trainers' seed-7 initial weights: --init <JAX_INIT>)
 Outputs: DIR/{single,halo}_curve.jsonl, DIR/run_{single,halo}/ and
          DIR/summary.json.
 """
@@ -25,11 +26,17 @@ import os
 
 import numpy as np
 
+from geobignn_tpu_torch import params
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import synth
 from geobignn_tpu_torch.train.logging import MetricLogger
 
 HALO_PARTS = 8
+# the JAX package's Trainer and HaloTrainer initial weights for run_config's
+# seed 7 (one tree for both), in the port's names (params.save_npz);
+# regenerated by `python tests/test_torch_faults.py write-init`
+JAX_INIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "halo_conv_jax_init.npz")
 
 
 def corpus():
@@ -58,9 +65,11 @@ def run_config(mode: str, epochs: int, seed: int) -> Config:
     )
 
 
-def run(mode: str, epochs: int, seed: int, out_dir: str, device="cuda"):
+def run(mode: str, epochs: int, seed: int, out_dir: str, device="cuda", init=None):
     """Train `mode` ("single" or "halo") on corpus(); the eval curve goes to
-    out_dir/{mode}_curve.jsonl.  Returns the best eval error_f."""
+    out_dir/{mode}_curve.jsonl.  `init`, the path of a weights .npz
+    (params.save_npz; JAX_INIT holds the JAX trainers'), replaces the
+    seeded initial weights.  Returns the best eval error_f."""
     import torch
 
     train_pairs, eval_pairs = corpus()
@@ -86,6 +95,9 @@ def run(mode: str, epochs: int, seed: int, out_dir: str, device="cuda"):
             cfg, InMemoryDataset(train_pairs, bc),
             InMemoryDataset(eval_pairs, bc), run_dir, device=device,
         )
+
+    if init is not None:
+        trainer.model.load_state_dict(params.load_npz(init))
 
     def report(tr, train_m, eval_m):
         if eval_m and tr.epoch % 5 == 0:
@@ -150,11 +162,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--out_dir", default=os.path.join("log", "halo_conv"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--init", default=None,
+                    help="initial weights (.npz, params.save_npz) in place of the "
+                         f"seeded ones; the JAX trainers' seed-7 weights: {JAX_INIT}")
     args = ap.parse_args(argv)
     if args.phase in ("single", "all"):
-        run("single", args.epochs, args.seed, args.out_dir, args.device)
+        run("single", args.epochs, args.seed, args.out_dir, args.device, args.init)
     if args.phase in ("halo", "all"):
-        run("halo", args.epochs, args.seed, args.out_dir, args.device)
+        run("halo", args.epochs, args.seed, args.out_dir, args.device, args.init)
     if args.phase in ("compare", "all"):
         return compare(args.out_dir)
     return None

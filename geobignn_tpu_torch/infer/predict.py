@@ -96,15 +96,25 @@ def _import_pinned(run_dir: str):
     `unpin_live_package` when done, so that a train -> predict chain, or a
     test suite, does not run the rest of the process on the snapshot.
 
+    A second pin while one is held replaces the held snapshot and keeps the
+    live package the first displaced, so one unpin restores it.
+
     The snapshot's modules count their kernel launches in the live
     package's counters (every `LAUNCHES` of the snapshot is rebound to the
     live dict), so a process has one place to read them."""
+    global _PINNED_STATE
     bak = os.path.abspath(os.path.join(run_dir, "code_bak"))
     if not os.path.isdir(os.path.join(bak, _PKG)):
         return None
-    live = {m: sys.modules[m] for m in _package_modules()}
-    for m in live:
+    held = _PINNED_STATE
+    current = {m: sys.modules[m] for m in _package_modules()}
+    # while a pin is held, the modules in sys.modules are its snapshot's: the
+    # live package stays the one that pin displaced
+    live = held["live"] if held else current
+    for m in current:
         del sys.modules[m]
+    if held and held["bak"] in sys.path:
+        sys.path.remove(held["bak"])
     sys.path.insert(0, bak)
     try:
         mod = importlib.import_module(__name__)
@@ -113,14 +123,15 @@ def _import_pinned(run_dir: str):
         sys.path.remove(bak)
         for m in _package_modules():
             del sys.modules[m]
-        sys.modules.update(live)
+        sys.modules.update(current)
+        if held:
+            sys.path.insert(0, held["bak"])
         raise
     counters = getattr(live.get(_PKG + ".ops.banded_cuda"), "LAUNCHES", None)
     if counters is not None:
         for m in _package_modules():
             if isinstance(getattr(sys.modules[m], "LAUNCHES", None), dict):
                 sys.modules[m].LAUNCHES = counters
-    global _PINNED_STATE
     _PINNED_STATE = dict(live=live, bak=bak)
     return mod
 

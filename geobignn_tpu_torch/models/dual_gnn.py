@@ -125,7 +125,8 @@ class FeaStConv(nn.Module):
         if level.band is None:
             return _remat(self._unbanded, x, level)
         dt = x.dtype
-        params = self._params(dt)
+        # u stays float32: ops/banded.factorized_softmax forms x @ u in it
+        params = dict(self._params(dt), u=self.u.to(torch.promote_types(dt, torch.float32)))
         mask = level.node_mask.to(dt)[:, None]
         n1 = x.shape[0]
         n_band = level.band.shape[0] * level.band.shape[1]

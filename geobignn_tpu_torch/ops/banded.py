@@ -435,21 +435,26 @@ def factorized_softmax(x: torch.Tensor, u: torch.Tensor, c: torch.Tensor):
     The choice is one for the call, made on the device (a captured step
     replays it), so that no pair of neighbours mixes the two.
 
-    `x @ u` comes out in x's dtype; the shifts and exponentials run in at
-    least float32 and p and r are rounded to that dtype once, as XLA runs
-    the JAX function's elementwise chain in one fusion without rounding
-    its intermediates.  In bf16 that keeps the cotangent of `a`, a small
+    `a = x @ u`, the shifts and the exponentials run in at least float32,
+    and p and r are rounded to x's dtype once, as XLA runs the JAX
+    function's elementwise chain in one fusion without rounding its
+    intermediates.  In bf16 that keeps the cotangent of `a`, a small
     difference of the p and r terms, from being rounded before the
-    subtraction."""
-    a = x @ u  # (N, H)
-    af = a.to(torch.promote_types(a.dtype, torch.float32))
-    ca = c.to(af.dtype) - af
+    subtraction.  `a` itself is formed in float32 from x's values and u as
+    given (the model passes its float32 u), where the JAX function forms it
+    in x's dtype from u cast to it: at whole-mesh coordinates a runs to
+    hundreds of |u|, where one bf16 ulp of a is an O(1) change of a head
+    logit (a deviation held by the witness of
+    tests/test_torch_bf16_coords.py)."""
+    af_dtype = torch.promote_types(torch.promote_types(x.dtype, u.dtype), torch.float32)
+    af = x.to(af_dtype) @ u.to(af_dtype)  # (N, H)
+    ca = c.to(af_dtype) - af
     hi, lo = af.amax(dim=1, keepdim=True), af.amin(dim=1, keepdim=True)
     wide = ((hi - lo) > WIDE_SPAN).any()
     mid = (hi + lo) / 2
-    p = torch.exp(af - torch.where(wide, mid, hi).detach()).to(a.dtype)
+    p = torch.exp(af - torch.where(wide, mid, hi).detach()).to(x.dtype)
     r = torch.exp(ca - torch.where(wide, -mid, ca.amax(dim=1, keepdim=True)).detach())
-    return p, r.to(a.dtype)
+    return p, r.to(x.dtype)
 
 
 def self_loop_epilogue(num, x, params, deg):

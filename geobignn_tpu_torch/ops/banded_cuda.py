@@ -645,7 +645,8 @@ def feast_conv_hybrid(params: dict, x, m, rows_b, nbr_b, kmask_b, src_b, rev_b, 
 
     x_i = x[rows_b]  # (M_b, C)
     xnb = tbl.table_gather_compact(x, nbr_b, src_b, rev_b)  # (M_b, K_b, C)
-    s = torch.einsum("mkc,ch->mkh", xnb - x_i[:, None, :], params["u"]) + params["c"]
+    s = torch.einsum("mkc,ch->mkh", xnb - x_i[:, None, :], params["u"].to(x.dtype)) \
+        + params["c"]
     q = torch.softmax(s, dim=-1) * kmask_b[..., None]
     z = torch.einsum("mkh,mkc->mhc", q, xnb)
     corr = torch.einsum("mhc,hco->mo", z, params["w"])

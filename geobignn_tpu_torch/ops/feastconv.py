@@ -30,6 +30,11 @@ from geobignn_tpu_torch.ops import table as tbl
 from geobignn_tpu_torch.ops.banded import self_loop_epilogue
 
 
+# E * H * C_in, the elements of the fused-heads outer product, above which
+# the COO conv sums the heads one at a time (the JAX function's gate)
+FUSED_HEADS_MAX = 1 << 29
+
+
 def _partial_aggregate(params: dict, x, x_src, row, col, n: int, count: bool):
     """(sum over the edges of q_h W_h x_j per row (N, C_out), the rows' edge
     counts (N,) or None without `count`) of one edge list.  The edges are
@@ -37,17 +42,25 @@ def _partial_aggregate(params: dict, x, x_src, row, col, n: int, count: bool):
     row-sorted lists of host-built levels and compacted coalesce outputs; a
     reordered level's lists are not sorted), so the sums are sorted segment
     sums and the gathers' backwards are too: no atomics, and no serial run
-    over the trash padding (ops/segment.py).  One segment sum of the
-    (E, H*C_in) outer product, as the JAX function's fused-heads branch."""
+    over the trash padding (ops/segment.py).  Up to FUSED_HEADS_MAX
+    elements, one segment sum of the (E, H*C_in) outer product, as the JAX
+    function's fused-heads branch; above it one (E, C_in) weighted gather
+    a head, summed into the output head by head, as its scan over the
+    heads: one such intermediate is live at a time."""
     c_in = x.shape[1]
     heads = params["c"].shape[0]
     order = torch.argsort(row, stable=True)
     row, col = row[order], col[order]
     x_j, x_i = segment.take_rows(x_src, col), segment.take_rows(x, row, sorted=True)
     q = torch.softmax((x_j - x_i) @ params["u"] + params["c"], dim=-1)  # (E, H)
-    big = (q[:, :, None] * x_j[:, None, :]).reshape(row.shape[0], heads * c_in)
-    z = segment.segment_sum(big, row, n, sorted=True).reshape(n, heads, c_in)
-    num = torch.einsum("nhc,hco->no", z, params["w"])
+    e = row.shape[0]
+    if e * heads * c_in <= FUSED_HEADS_MAX:
+        big = (q[:, :, None] * x_j[:, None, :]).reshape(e, heads * c_in)
+        z = segment.segment_sum(big, row, n, sorted=True).reshape(n, heads, c_in)
+        num = torch.einsum("nhc,hco->no", z, params["w"])
+    else:
+        num = sum(segment.segment_sum(q[:, h, None] * x_j, row, n, sorted=True)
+                  @ params["w"][h] for h in range(heads))
     cnt = segment.segment_count(row, n, dtype=x.dtype, sorted=True) if count else None
     return num, cnt
 

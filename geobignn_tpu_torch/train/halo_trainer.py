@@ -81,6 +81,9 @@ class HaloTrainer:
                 m_n, m_o, bc, self.n_parts, seed=cfg.preprocess_seed,
                 granularity=cfg.granularity, banded=cfg.halo_banded, devices=self.devices)
 
+        if not mesh_pairs:
+            raise ValueError("HaloTrainer needs at least one training pair: mesh_pairs "
+                             "is empty")
         min_fpp = min(m_n.n_faces for m_n, _ in mesh_pairs) // self.n_parts
         if min_fpp < self.KNEE_FACES_PER_PART:
             # a warning, not a failure: the run is still right, only slower

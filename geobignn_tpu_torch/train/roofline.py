@@ -134,3 +134,84 @@ def roofline(sample, step_seconds: float, heads: int = 9,
         step_tflops=round(exe / step_seconds / 1e12, 2),
         peak_tflops=round(peak / 1e12, 1),
     )
+
+
+# --------------------------------------------------------------------------
+# one call of a banded / block-sparse aggregate (csrc/banded_*.cu,
+# csrc/blocksparse_*.cu): the work its data needs, for its bound
+# --------------------------------------------------------------------------
+
+def aggregate_work(r, p, x, w, m, tf: bool, blk_idx=None) -> tuple[int, int, int]:
+    """(bytes, operations this call's data needs, operations counted
+    densely over the window as the TPU wrapper's cost estimate does) of one
+    forward aggregate.  With N rows, H heads, C_in -> C_out, a window of W
+    slots, S set mask slots and K = H * (C_out if tf else C_in):
+
+        bytes = 4 (|r| + |p| + |x| + |w| + N C_out) + |m| (+ |blk_idx| x its item size)
+        ops   = 2 S (H + K) + N K,  plus
+                tf:  2 N H C_out C_in + N K      (x W first; the head sum)
+                not: N K + 2 N K C_out           (p x; the W contraction)
+        dense = 2 N W (H (C_out + 1) + H C_in / 3)   tf
+                2 N W (H (C_in + 1) + H C_out / 3)   not tf
+
+    r, p, x, w in float32 (the wrapper's operands), m int8."""
+    n, c_in = x.shape
+    heads, c_out = r.shape[1], w.shape[2]
+    win = m.shape[2]
+    k = heads * (c_out if tf else c_in)
+    nnz = int(m.count_nonzero())
+    byts = 4 * (r.numel() + p.numel() + x.numel() + w.numel() + n * c_out) + m.numel()
+    if blk_idx is not None:
+        byts += blk_idx.numel() * blk_idx.element_size()
+    ops = 2 * nnz * (heads + k) + n * k  # D and A·V over the set slots; r scale
+    if tf:
+        ops += 2 * n * heads * c_out * c_in + n * k  # W2 x; head sum
+    else:
+        ops += n * k + 2 * n * k * c_out  # p x; W contraction
+    if tf:
+        dense = 2 * n * win * (heads * (c_out + 1) + heads * c_in / 3)
+    else:
+        dense = 2 * n * win * (heads * (c_in + 1) + heads * c_out / 3)
+    return byts, ops, int(dense)
+
+
+def aggregate_work_bwd(r, p, x, w, m, tf: bool, blk_idx=None) -> tuple[int, int, int]:
+    """(bytes, operations this call's data needs, dense operations) of one
+    backward aggregate.  Inputs r, p, x, w, m, gout (and blk_idx) and
+    outputs r̄, p̄, x̄ and the per-block W̄ partials, each moved once; per set
+    mask slot D, the window products z, K and a and the r̄ / p̄ denominator
+    parts, plus the per-node products; densely, the five window products of
+    the TPU kernel over the whole window and the two C_out (or C_in)
+    products.  With B row blocks, Cv = C_out if tf else C_in, KK = H Cv,
+    Cr = C_in if tf else C_out:
+
+        bytes = 4 (|r| + |p| + |x| + |w| + N C_out) + |m|
+                + 4 (2 N H + N C_in + B KK Cr) (+ |blk_idx| x its item size)
+        ops   = S (6 KK + 6 H) + (tf:  N (4 KK C_in + 8 KK) + 2 N KK C_in
+                                  not: N (9 KK + 2 KK C_out) + 2 N KK C_out)"""
+    n, c_in = x.shape
+    heads, c_out = r.shape[1], w.shape[2]
+    n_blk, _, win = m.shape
+    cv = c_out if tf else c_in
+    kk = heads * cv
+    cr = c_in if tf else c_out
+    nnz = int(m.count_nonzero())
+    byts = (4 * (r.numel() + p.numel() + x.numel() + w.numel() + n * c_out)
+            + m.numel() + 4 * (2 * n * heads + n * c_in + n_blk * kk * cr))
+    if blk_idx is not None:
+        byts += blk_idx.numel() * blk_idx.element_size()
+    ops = nnz * (6 * kk + 6 * heads)
+    if tf:  # Y, V, G, gz*z, y*a, yb, x̄ = yb W2, W̄ = yb^T x
+        ops += n * (2 * kk * c_in + 8 * kk + 2 * kk * c_in) + 2 * n * kk * c_in
+        dense = 2 * n * win * (3 * kk + 3 * heads) + 3 * 2 * 3 * n * kk * c_in
+    else:  # V, gy, G, zr, gy*z, x̄, p̄ direct, W̄ = zr^T gout
+        ops += n * (9 * kk + 2 * kk * c_out) + 2 * n * kk * c_out
+        dense = 2 * n * win * (3 * kk + 3 * heads) + 4 * n * kk * c_out
+    return byts, ops, int(dense)
+
+
+def bound_ms(byts: float, ops: float, peaks=PEAKS["H100 80GB HBM3"]) -> tuple[float, str]:
+    """(the least milliseconds for `byts` bytes and `ops` bf16 tensor-core
+    operations at the card's rates, which of the two bounds it)."""
+    t_b, t_o = byts / peaks[2], ops / peaks[0]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")

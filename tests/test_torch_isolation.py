@@ -1,5 +1,7 @@
 """The port stands alone: it imports nothing of JAX, flax, optax, msgpack or
-geobignn_tpu (chip_smoke.py neither), and
+geobignn_tpu (chip_smoke.py neither), nor the repo's scripts (bench.py,
+bench_baseline_torch.py, chip_smoke.py, profile_train_step.py: its
+examples/ probes included), and
 its entry points refuse to run without a GPU unless asked for the CPU."""
 
 from __future__ import annotations
@@ -28,12 +30,16 @@ need = {pkg.__name__ + "." + m for m in (
     "infer.evaluate", "infer.predict", "data.dataset", "cli", "__main__",
     "ops.coalesce", "ops.matching", "pool.dynamic", "models.fusion", "data.prefetch",
     "utils", "ops.gcn", "ops.gat", "models.legacy", "viz", "viz3d", "infer.gt_transfer",
-    "parallel.api")}
+    "parallel.api", "examples.kernel_probe", "examples.trace_step", "examples.profile_step",
+    "examples.profile_large", "examples.probe_serial", "examples.probe_f1_327k",
+    "examples.bench_dynamic", "examples.probe_dynamic", "examples.halo_scaling_report",
+    "examples._sample", "examples._probe")}
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
-                                    "geobignn_tpu"))
+                                    "geobignn_tpu")
+             or m in ("bench", "bench_baseline_torch", "chip_smoke", "profile_train_step"))
 print(len(names), bad, sorted(need - set(names)))
 sys.exit(1 if bad or need - set(names) or len(names) < 50 else 0)
 """
