@@ -5,6 +5,7 @@
     python3 chip_smoke.py --large       # the 1,310,720-face mesh (see the end)
     python3 chip_smoke.py --large-halo  # its 8-part halo step and serving (the end)
     python3 chip_smoke.py --campaign    # train to the JAX package's accuracy (the end)
+    python3 chip_smoke.py --halo-conv   # halo convergence over seeds 7-11 (the end)
     python3 chip_smoke.py --probes      # the measuring scripts of examples/ (the end)
 
 Phases, each printing its lines; any failure raises and the script exits
@@ -357,19 +358,29 @@ the curve beside the JAX run r5's (docs/campaign_r5/metrics.jsonl);
 meshes, each shape, class and the corpus beside the JAX runs r5 and r2,
 held to CAMPAIGN_BOUNDS and CAMPAIGN_CLASS_GAIN, #7 against its plain
 version, the best checkpoint served against device="cpu" and against the
-table convs; `[halo-conv]`, geobignn_tpu_torch/examples/halo_convergence.py
-single-device and over 8 parts on cuda:0 for 60 epochs, the curves every 5
-epochs and compare()'s summary beside docs/halo_conv/summary.json, held to
-HALO_CONV_REL_GAP and HALO_CONV_OF_JAX, and the single-device run again
-with its aggregates in float32 against the same halo curve; then the pair
-from the JAX trainers' seed-7 initial weights (examples/data/
-halo_conv_jax_init.npz), held to the same bounds, and the pairs from the
-port's weights at seeds 8-11, each rel_gap and their min, median and max
-over seeds 7-11.  A missed accuracy bound fails the
-run after every phase has printed.  The modules' own output, the run's
-metrics.jsonl and campaign_results.json and the halo curves go to
-log/campaign/.  It prints its own kernels line (the aggregates the
-counted epoch ran, and #7) and the same result line.
+table convs.  A missed accuracy bound fails the run after every phase has
+printed.  The modules' own output, the run's metrics.jsonl and
+campaign_results.json go to log/campaign/.  It prints its own kernels line
+(the aggregates the counted epoch ran, and #7) and the same result line.
+
+--halo-conv holds halo convergence to the JAX trainer's own spread over
+seeds: `[halo-conv]`, geobignn_tpu_torch/examples/halo_convergence.py
+single-device and over 8 parts on cuda:0 for 60 epochs, compare()'s
+rel_gap of the two curves' final means, in ten pairs: (a_s) from the
+port's initial weights and (b_s) from the JAX trainers'
+(halo_convergence.jax_init(s), committed), for s = 7..11, one line a pair
+and each side's min, median and max; (a_7)'s curves every 5 epochs beside
+docs/halo_conv/, and its single-device run again with its aggregates in
+float32 against the same halo curve.  Held: HALO_CONV_OF_JAX on (a_7) and
+(b_7), HALO_CONV_REL_GAP on (b_7), and halo_convergence.gate's rule on the
+port's own weights (HALO_CONV_REL_GAP on (a_7) while every b_s meets it;
+else the median of the a_s within the larger of HALO_CONV_REL_GAP and the
+median of the b_s); a miss fails the run after every pair has printed.
+Every #1-#4 call of (a_7)'s single-device run (its first steps' and eval
+passes' warm-ups and captures), held against its plain version; each
+pair's curves and summary go to log/halo_conv_seeds/.  It prints its own
+kernels line (launches: the wrappers' counts over the ten pairs, eager
+calls and captures) and the same result line.
 
 --probes runs the measuring scripts of geobignn_tpu_torch/examples/ (the
 twins of the JAX repo's examples/ probes) on cuda:0 at the JAX scripts'
@@ -3987,11 +3998,13 @@ CAMPAIGN_BOUNDS = {"angle1": 2.2, "angle2": 2.1, "hausdorff": 1.9}
 CAMPAIGN_CLASS_GAIN = 8.0
 CAMPAIGN_CLASSES = ("smooth", "torus", "sharp", "mixed")
 CAMPAIGN_CURVE = (0, 10, 50, 100, 200, 300, 400, 499)  # epochs printed beside r5's
-# halo_convergence.py: 60 epochs from seed 7; |single - halo| / single of the
-# last 10 epochs' mean eval error_f, and each mean within HALO_CONV_OF_JAX
-# times the JAX run's (docs/halo_conv/summary.json)
+# halo_convergence.py: 60 epochs from each seed of JAX_INIT_SEEDS; |single
+# - halo| / single of the last 10 epochs' mean eval error_f, and each mean
+# within HALO_CONV_OF_JAX times the JAX run's (docs/halo_conv/summary.json,
+# seed 7)
 HALO_CONV_EPOCHS, HALO_CONV_SEED, HALO_CONV_REL_GAP, HALO_CONV_OF_JAX = 60, 7, 0.05, 1.25
 CAMPAIGN_KEEP = os.path.join("log", "campaign")  # --campaign's artefacts (not committed)
+HALO_CONV_KEEP = os.path.join("log", "halo_conv_seeds")  # --halo-conv's
 
 
 def _modes(sample):
@@ -4301,9 +4314,6 @@ def campaign_short_phase(torch, np, kind):
     return counts
 
 
-HALO_CONV_MORE_SEEDS = (8, 9, 10, 11)  # [halo-conv]'s spread: own-init pairs at these
-
-
 def _halo_pair(torch, hc, log, seed, out_dir, init=None):
     """halo_convergence.run single-device and with 8 parts on cuda:0 from
     `seed` (and `init`'s weights, if given) into out_dir; compare()'s
@@ -4319,48 +4329,8 @@ def _halo_pair(torch, hc, log, seed, out_dir, init=None):
         return hc.compare(out_dir), secs
 
 
-def _halo_bounds(summary, ref, what):
-    """The misses of HALO_CONV_REL_GAP and HALO_CONV_OF_JAX by one pair."""
-    missed = [] if summary["rel_gap"] <= HALO_CONV_REL_GAP else [
-        f"{what}: halo rel_gap {summary['rel_gap']} > {HALO_CONV_REL_GAP}"]
-    for m in ("single", "halo"):
-        bound = HALO_CONV_OF_JAX * ref[f"{m}_final_mean"]
-        if not summary[f"{m}_final_mean"] <= bound:
-            missed.append(f"{what}: {m}_final_mean {summary[f'{m}_final_mean']} > {bound:.4f}")
-    return missed
-
-
-def halo_conv_phase(torch, log, kind, failures):
-    """[halo-conv]: halo_convergence.run single-device and with 8 parts,
-    every part on cuda:0 (each halo step and eval forward one CUDA graph),
-    HALO_CONV_EPOCHS epochs each: (a) from the port's seed-7 weights, the
-    curves every 5 epochs and compare()'s summary beside the JAX run's
-    (docs/halo_conv/); (b) from the JAX trainers' seed-7 initial weights
-    (halo_convergence.JAX_INIT), the weights the JAX run started from;
-    both held to HALO_CONV_REL_GAP and HALO_CONV_OF_JAX, misses to
-    `failures`.  Then the single-device run of (a) once more with its
-    aggregates in float32, compare()'s summary of that against (a)'s halo
-    curve; and (c) the own-init pairs at HALO_CONV_MORE_SEEDS, each pair's
-    rel_gap and the min, median and max over seeds 7-11 (not bounded: the
-    statistic's spread)."""
-    from geobignn_tpu_torch.examples import halo_convergence as hc
-    from geobignn_tpu_torch.testing import aggregates_in
-
-    tag = "halo-conv"
-    with open(os.path.join("docs", "halo_conv", "summary.json")) as f:
-        ref = json.load(f)
-    out_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_")
-    summary, secs = _halo_pair(torch, hc, log, HALO_CONV_SEED, out_dir)
-    # whether the single-device run's bf16 aggregate operands move the gap
-    # (the halo run's table convs compute in float32)
-    f32_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_f32_")
-    shutil.copy2(os.path.join(out_dir, "halo_curve.jsonl"), f32_dir)
-    with aggregates_in(torch.float32), contextlib.redirect_stdout(log):
-        hc.run("single", HALO_CONV_EPOCHS, HALO_CONV_SEED, f32_dir, "cuda")
-        f32 = hc.compare(f32_dir)
-    shutil.rmtree(f32_dir, ignore_errors=True)
-    _free(torch)
-
+def _halo_curves(tag, out_dir):
+    """(a_7)'s curves every 5 epochs beside the JAX run's (docs/halo_conv/)."""
     def curve(path):
         with open(path) as f:
             return {r["epoch"]: r["error_f"] for r in map(json.loads, f)}
@@ -4369,39 +4339,91 @@ def halo_conv_phase(torch, log, kind, failures):
     mine = {m: curve(os.path.join(out_dir, f"{m}_curve.jsonl")) for m in ("single", "halo")}
     theirs = {m: curve(os.path.join(ref_dir, f"{m}_curve.jsonl")) for m in ("single", "halo")}
     for e in sorted({*range(0, HALO_CONV_EPOCHS, 5), HALO_CONV_EPOCHS - 1}):
-        print(f"[{tag}] epoch {e}: eval error_f single {mine['single'][e]:.3f}, halo(8) "
-              f"{mine['halo'][e]:.3f} (JAX {theirs['single'][e]:.3f} / "
-              f"{theirs['halo'][e]:.3f})")
-    print(f"[{tag}] (a) seed {HALO_CONV_SEED}, the port's initial weights: summary "
-          f"{json.dumps(summary)}; JAX {json.dumps(ref)}; single {secs['single']:.1f} s, halo "
-          f"{secs['halo']:.1f} s (8 parts on cuda:0); card {kind}")
-    print(f"[{tag}] the single-device run again with its aggregates in float32 "
-          f"(testing.aggregates_in): {json.dumps(f32)}")
-    missed = _halo_bounds(summary, ref, "(a)")
+        print(f"[{tag}] a_{HALO_CONV_SEED} epoch {e}: eval error_f single "
+              f"{mine['single'][e]:.3f}, halo(8) {mine['halo'][e]:.3f} (JAX "
+              f"{theirs['single'][e]:.3f} / {theirs['halo'][e]:.3f})")
 
-    jax_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_jaxinit_")
-    jax_init, jsecs = _halo_pair(torch, hc, log, HALO_CONV_SEED, jax_dir, hc.JAX_INIT)
-    print(f"[{tag}] (b) seed {HALO_CONV_SEED}, the JAX trainers' initial weights "
-          f"({os.path.relpath(hc.JAX_INIT)}): summary {json.dumps(jax_init)}; JAX "
-          f"{json.dumps(ref)}; single {jsecs['single']:.1f} s, halo {jsecs['halo']:.1f} s")
-    missed += _halo_bounds(jax_init, ref, "(b)")
-    shutil.rmtree(jax_dir, ignore_errors=True)
 
-    gaps = {HALO_CONV_SEED: summary["rel_gap"]}
-    for seed in HALO_CONV_MORE_SEEDS:
-        seed_dir = tempfile.mkdtemp(prefix=f"gbn_halo_conv_s{seed}_")
-        gaps[seed] = _halo_pair(torch, hc, log, seed, seed_dir)[0]["rel_gap"]
-        shutil.rmtree(seed_dir, ignore_errors=True)
-        print(f"[{tag}] (c) seed {seed}, the port's initial weights: rel_gap {gaps[seed]}")
-    vals = sorted(gaps.values())
-    print(f"[{tag}] rel_gap over seeds {min(gaps)}-{max(gaps)} (own initial weights): "
-          f"{json.dumps(gaps)}; min {vals[0]}, median {vals[len(vals) // 2]}, max "
-          f"{vals[-1]}; from the JAX weights {jax_init['rel_gap']}")
-    print(f"[{tag}] bounds, (a) and (b): rel_gap <= {HALO_CONV_REL_GAP}, final means <= "
-          f"{HALO_CONV_OF_JAX}x the JAX run's: " + ("met" if not missed else
-                                                   "MISSED: " + "; ".join(missed)))
+def halo_conv_phase(torch, np, log, kind, failures, fwd, bwd):
+    """[halo-conv]: halo_convergence.run single-device and with 8 parts,
+    every part on cuda:0 (each halo step and eval forward one CUDA graph),
+    HALO_CONV_EPOCHS epochs each, in pairs: (a_s) from the port's initial
+    weights and (b_s) from the JAX trainers' (halo_convergence.jax_init(s))
+    for s in halo_convergence.JAX_INIT_SEEDS, one line a pair (final means, their share of
+    the JAX run's, rel_gap, seconds), then each side's min, median and
+    max.  (a_7)'s curves beside the JAX run's, and its single-device run
+    once more with its aggregates in float32 against its halo curve.  Held:
+    HALO_CONV_OF_JAX on (a_7) and (b_7), HALO_CONV_REL_GAP on (b_7),
+    halo_convergence.gate on the a_s against the b_s; misses go to
+    `failures`.  The aggregate calls of (a_7) are recorded into `fwd` and
+    `bwd` (_recording).  Each pair's curves and summary go to
+    HALO_CONV_KEEP."""
+    from geobignn_tpu_torch.examples import halo_convergence as hc
+    from geobignn_tpu_torch.testing import aggregates_in
+
+    tag = "halo-conv"
+    with open(os.path.join("docs", "halo_conv", "summary.json")) as f:
+        ref = json.load(f)
+    gaps: dict = {"a": {}, "b": {}}
+    missed = []
+    for seed in hc.JAX_INIT_SEEDS:
+        for side in ("a", "b"):
+            what = f"{side}_{seed}"
+            out_dir = tempfile.mkdtemp(prefix=f"gbn_halo_conv_{what}_")
+            init = hc.jax_init(seed) if side == "b" else None
+            with contextlib.ExitStack() as rec:
+                if what == f"a_{HALO_CONV_SEED}":
+                    rec.enter_context(_recording(fwd))
+                    rec.enter_context(_recording(bwd, backward=True))
+                summary, secs = _halo_pair(torch, hc, log, seed, out_dir, init)
+            gaps[side][seed] = summary["rel_gap"]
+            means = {m: summary[f"{m}_final_mean"] for m in ("single", "halo")}
+            print(f"[{tag}] seed {seed}, ({what}) from "
+                  + ("the port's initial weights" if side == "a" else
+                     f"the JAX trainers' ({os.path.relpath(init)})")
+                  + f": single {means['single']}, halo {means['halo']} (of the JAX run's "
+                  f"{means['single'] / ref['single_final_mean']:.4f} / "
+                  f"{means['halo'] / ref['halo_final_mean']:.4f}), rel_gap "
+                  f"{summary['rel_gap']}; single {secs['single']:.1f} s, halo "
+                  f"{secs['halo']:.1f} s (8 parts on cuda:0)", flush=True)
+            if seed == HALO_CONV_SEED:
+                missed += [f"({what}) {m}_final_mean {v} > {HALO_CONV_OF_JAX}x the JAX "
+                           f"run's {ref[f'{m}_final_mean']}" for m, v in means.items()
+                           if not v <= HALO_CONV_OF_JAX * ref[f"{m}_final_mean"]]
+            if what == f"b_{HALO_CONV_SEED}" and not summary["rel_gap"] <= HALO_CONV_REL_GAP:
+                missed.append(f"({what}) rel_gap {summary['rel_gap']} > {HALO_CONV_REL_GAP}")
+            if what == f"a_{HALO_CONV_SEED}":
+                _halo_curves(tag, out_dir)
+                # whether the single-device run's bf16 aggregate operands move
+                # the gap (the halo run's table convs compute in float32)
+                f32_dir = tempfile.mkdtemp(prefix="gbn_halo_conv_f32_")
+                shutil.copy2(os.path.join(out_dir, "halo_curve.jsonl"), f32_dir)
+                with aggregates_in(torch.float32), contextlib.redirect_stdout(log):
+                    hc.run("single", HALO_CONV_EPOCHS, seed, f32_dir, "cuda")
+                    f32 = hc.compare(f32_dir)
+                shutil.rmtree(f32_dir, ignore_errors=True)
+                _free(torch)
+                print(f"[{tag}] (a_{seed})'s single-device run again with its aggregates in "
+                      f"float32 (testing.aggregates_in): {json.dumps(f32)}")
+            _keep(out_dir, ("single_curve.jsonl", "halo_curve.jsonl", "summary.json"),
+                  os.path.join(HALO_CONV_KEEP, what))
+            shutil.rmtree(out_dir, ignore_errors=True)
+    for side, label in (("a", "the port's initial weights"), ("b", "the JAX trainers'")):
+        vals = list(gaps[side].values())
+        print(f"[{tag}] rel_gap from {label} over seeds {min(gaps[side])}-"
+              f"{max(gaps[side])}: {json.dumps(gaps[side])}; min {min(vals)}, median "
+              f"{float(np.median(vals))}, max {max(vals)}")
+    met, rule = hc.gate(gaps["a"], gaps["b"], HALO_CONV_REL_GAP)
+    print(f"[{tag}] the port's own weights (halo_convergence.gate): {rule}: "
+          + ("met" if met else "MISSED"))
+    if not met:
+        missed.append(f"gate: {rule}")
+    print(f"[{tag}] bounds: final means <= {HALO_CONV_OF_JAX}x the JAX run's on "
+          f"(a_{HALO_CONV_SEED}) and (b_{HALO_CONV_SEED}), rel_gap <= {HALO_CONV_REL_GAP} on "
+          f"(b_{HALO_CONV_SEED}), the gate on the a_s; card {kind}: "
+          + ("met" if not missed else "MISSED: " + "; ".join(missed)))
     failures += missed
-    return out_dir, summary
+    return gaps
 
 
 def _keep(src_dir, names, dst_dir):
@@ -4414,8 +4436,8 @@ def _keep(src_dir, names, dst_dir):
 
 def campaign_main(torch, np, kind, t_start):
     """python3 chip_smoke.py --campaign: the whole campaign (66 + 24
-    samples, 500 epochs), its final evaluation, then halo convergence; the
-    modules' own output and the runs' files go to CAMPAIGN_KEEP."""
+    samples, 500 epochs) and its final evaluation; the modules' own output
+    and the run's files go to CAMPAIGN_KEEP."""
     failures: list = []
     os.makedirs(CAMPAIGN_KEEP, exist_ok=True)
     with open(os.path.join(CAMPAIGN_KEEP, "campaign_log.txt"), "w") as log:
@@ -4437,11 +4459,6 @@ def campaign_main(torch, np, kind, t_start):
         del camp, dss
         _free(torch)
         _lap(t_start, "[campaign-eval]")
-        out_dir, _ = halo_conv_phase(torch, log, kind, failures)
-        _keep(out_dir, ("single_curve.jsonl", "halo_curve.jsonl", "summary.json"),
-              os.path.join(CAMPAIGN_KEEP, "halo_conv"))
-        shutil.rmtree(out_dir, ignore_errors=True)
-        _lap(t_start, "[halo-conv]")
     kernels = [_kernel_entry(name, [r for r in rows if r["kernel"] == name], device[name])
                for name in AGGREGATES if device[name]]
     kernels.append({
@@ -4450,6 +4467,44 @@ def campaign_main(torch, np, kind, t_start):
         "replaces": "geobignn_tpu/ops/pallas_nn.py:42", "launches": ev["nearest"],
         **{k: ev["nearest_row"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}})
+    print(json.dumps({"kernels": kernels}))
+    if failures:
+        raise AssertionError("accuracy bounds missed: " + "; ".join(failures))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def halo_conv_main(torch, np, kind, t_start):
+    """python3 chip_smoke.py --halo-conv: halo_conv_phase's ten pairs, the
+    wrappers' launch counts zeroed just before them and read just after;
+    then every #1-#4 call of (a_7)'s single-device run (its first steps'
+    and eval passes' warm-ups and captures) against its plain version, and
+    a kernels line of those.  The modules' own output goes to
+    HALO_CONV_KEEP/halo_conv_log.txt."""
+    from geobignn_tpu_torch.ops import banded_cuda
+
+    failures: list = []
+    fwd, bwd = {}, {}
+    os.makedirs(HALO_CONV_KEEP, exist_ok=True)
+    with open(os.path.join(HALO_CONV_KEEP, "halo_conv_log.txt"), "w") as log:
+        banded_cuda.reset_launches()
+        halo_conv_phase(torch, np, log, kind, failures, fwd, bwd)
+        launches = dict(banded_cuda.LAUNCHES)
+    _lap(t_start, "[halo-conv]")
+    print(f"[halo-conv] the wrappers counted {_nonzero(launches)} over the ten pairs and "
+          f"the float32 rerun (eager calls and captures; a graph's replays are not counted)")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = [check_forward(k, fwd.pop(k), reps=5, tag="halo-conv-kernel") for k in sorted(fwd)]
+    rows += [check_backward(k, bwd.pop(k), gen, reps=5, tag="halo-conv-kernel-bwd")
+             for k in sorted(bwd)]
+    path = [k for k in AGGREGATES if launches[k]]
+    assert {"aggregate_first", "transform_first", "aggregate_first_bwd",
+            "transform_first_bwd"} <= set(path), launches
+    assert all(any(r["kernel"] == k for r in rows) for k in path), (path, len(rows))
+    kernels = [_kernel_entry(k, [r for r in rows if r["kernel"] == k], launches[k])
+               for k in path]
+    _lap(t_start, "the kernel checks")
     print(json.dumps({"kernels": kernels}))
     if failures:
         raise AssertionError("accuracy bounds missed: " + "; ".join(failures))
@@ -4536,9 +4591,10 @@ def probes_main(torch, kind, t_start):
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--large"], ["--large-halo"], ["--campaign"], ["--probes"]):
-        print("usage: python3 chip_smoke.py [--large | --large-halo | --campaign | --probes]",
-              file=sys.stderr)
+    if argv not in ([], ["--large"], ["--large-halo"], ["--campaign"], ["--halo-conv"],
+                    ["--probes"]):
+        print("usage: python3 chip_smoke.py "
+              "[--large | --large-halo | --campaign | --halo-conv | --probes]", file=sys.stderr)
         return 2
     # 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4583,6 +4639,8 @@ def main(argv) -> int:
         return large_halo_main(torch, np, kind, t_start, state, hosts)
     if argv == ["--campaign"]:
         return campaign_main(torch, np, kind, t_start)
+    if argv == ["--halo-conv"]:
+        return halo_conv_main(torch, np, kind, t_start)
     if argv == ["--probes"]:
         return probes_main(torch, kind, t_start)
     # 3. the serving path, every level banded ---------------------------------

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of JAX, flax, optax, msgpack or
 geobignn_tpu (chip_smoke.py neither), nor the repo's scripts (bench.py,
 bench_baseline_torch.py, chip_smoke.py, profile_train_step.py: its
-examples/ probes included), and
+examples/ probes and halo_convergence's helpers included), and
 its entry points refuse to run without a GPU unless asked for the CPU."""
 
 from __future__ import annotations
@@ -33,9 +33,15 @@ need = {pkg.__name__ + "." + m for m in (
     "parallel.api", "examples.kernel_probe", "examples.trace_step", "examples.profile_step",
     "examples.profile_large", "examples.probe_serial", "examples.probe_f1_327k",
     "examples.bench_dynamic", "examples.probe_dynamic", "examples.halo_scaling_report",
-    "examples._sample", "examples._probe")}
+    "examples._sample", "examples._probe", "examples.halo_convergence",
+    "examples.train_synthetic_campaign")}
 for name in names:
     importlib.import_module(name)
+import os
+from geobignn_tpu_torch.examples import halo_convergence as hc
+assert all(os.path.isfile(hc.jax_init(s)) for s in hc.JAX_INIT_SEEDS)
+pairs = dict.fromkeys(hc.JAX_INIT_SEEDS, 0.01)
+assert hc.gate(pairs, pairs, 0.05)[0]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
                                     "geobignn_tpu")
