@@ -34,6 +34,13 @@ profile of it (`profile_train_step.aggregate_launches`).
 
 `EAGER` is the one switch to the eager path on the card, for comparisons
 (`testing.eager_steps()`); the CPU always runs eagerly.
+
+While a profiler records (tracing.py), a replayed call is the span
+`graph.run` (the signature lookup and check, then `graph.copy_inputs` and
+`graph.replay`) and counts `graph.runs`, `graph.input_tensors` and
+`graph.input_bytes` (what was copied into the static inputs); a first call
+is `graph.capture` (the warm-up and the capture, after a `graph.run` that
+held only the lookup) and counts `graph.captures`.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import gc
 import torch
 import torch.distributed as dist
 
+from geobignn_tpu_torch import tracing
 from geobignn_tpu_torch.ops.banded_cuda import LAUNCHES
 
 EAGER = False  # testing.eager_steps() sets it; nothing else does
@@ -156,9 +164,16 @@ class Graph:
             raise ValueError("inputs differ from the captured ones in structure or shape")
         dst, src = tensors(self.inputs), tensors(inputs)
         pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
+        if tracing.on():
+            tracing.count("graph.runs")
+            tracing.count("graph.input_tensors", len(pairs))
+            tracing.count("graph.input_bytes", sum(s.numel() * s.element_size()
+                                                   for _, s in pairs))
         if pairs:
-            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
-        self.graph.replay()
+            with tracing.span("graph.copy_inputs"):
+                torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+        with tracing.span("graph.replay"):
+            self.graph.replay()
         self.replays += 1
         return self.outputs
 
@@ -181,15 +196,18 @@ class Program:
         self.graphs: dict = {}  # signature of the inputs -> Graph
 
     def __call__(self, *inputs):
-        graph = self.graphs.get(signature(inputs))
-        if graph is not None:
-            return graph(*inputs)
-        with side_stream():
-            out = self.fn(*inputs)
-        graph = Graph(self.fn, *inputs, pool=self.pool.handle())
-        self.graphs[graph.key] = graph
-        if self.settle is not None:
-            self.settle()
+        with tracing.span("graph.run"):
+            graph = self.graphs.get(signature(inputs))
+            if graph is not None:
+                return graph(*inputs)
+        with tracing.span("graph.capture"):
+            tracing.count("graph.captures")
+            with side_stream():
+                out = self.fn(*inputs)
+            graph = Graph(self.fn, *inputs, pool=self.pool.handle())
+            self.graphs[graph.key] = graph
+            if self.settle is not None:
+                self.settle()
         return out
 
 

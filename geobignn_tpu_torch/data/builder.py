@@ -15,7 +15,7 @@ import dataclasses
 
 import numpy as np
 
-from geobignn_tpu_torch import geometry, graphs, structs
+from geobignn_tpu_torch import geometry, graphs, structs, tracing
 from geobignn_tpu_torch.meshio import TriMesh
 from geobignn_tpu_torch.pool import hierarchy as H
 
@@ -58,6 +58,7 @@ class RawBranch:
         )
 
 
+@tracing.spanned("build.hierarchy")
 def _build_branch(x, y, ei, w, n, cfg: BuildConfig, seed, depth=None) -> RawBranch:
     specs = H.build_hierarchy(
         ei, w, x, n,
@@ -101,22 +102,26 @@ def build_raw(
     """Host geometry + graphs + hierarchies, unpadded.
 
     centroid/scale may be passed in (submesh patches normalize with the
-    FULL mesh's frame, reference code/dataset.py:140,151-152)."""
+    FULL mesh's frame, reference code/dataset.py:140,151-152).  Spans
+    (while a profiler records): `build.rcm`, `build.graphs` (a branch's
+    normals and weighted graph), `build.hierarchy` (its pooling levels)."""
     perm_v = perm_f = None
     if cfg.reorder:
-        mesh_n, mesh_o, perm_v, perm_f = rcm_reorder_meshes(mesh_n, mesh_o)
+        with tracing.span("build.rcm"):
+            mesh_n, mesh_o, perm_v, perm_f = rcm_reorder_meshes(mesh_n, mesh_o)
     pts = mesh_n.points
     if centroid is None or scale is None:
         _, centroid, scale = geometry.center_and_scale_np(
             pts, mesh_n.ev_indices, cfg.scale_type
         )
-    vn = geometry.vertex_normals_np(pts, mesh_n.fv_indices)
-    fn = geometry.face_normals_np(pts, mesh_n.fv_indices)
-    fc = pts[mesh_n.fv_indices].mean(1)
+    with tracing.span("build.graphs"):
+        vn = geometry.vertex_normals_np(pts, mesh_n.fv_indices)
+        fn = geometry.face_normals_np(pts, mesh_n.fv_indices)
+        fc = pts[mesh_n.fv_indices].mean(1)
 
-    # vertex branch
-    ei_v = graphs.build_vertex_graph_1ring(mesh_n.ev_indices, mesh_n.n_vertices)
-    _, w_v = graphs.weighted_graph(ei_v, mesh_n.n_vertices, pts, vn)
+        # vertex branch
+        ei_v = graphs.build_vertex_graph_1ring(mesh_n.ev_indices, mesh_n.n_vertices)
+        _, w_v = graphs.weighted_graph(ei_v, mesh_n.n_vertices, pts, vn)
     x_v = np.concatenate([(pts - centroid) * scale, vn], axis=1).astype(np.float32)
     y_v = None
     if mesh_o is not None:
@@ -128,8 +133,9 @@ def build_raw(
     bv = _build_branch(x_v, y_v, ei_v, w_v, mesh_n.n_vertices, cfg, cfg.seed, depth)
 
     # facet branch
-    ei_f = graphs.build_facet_graph(mesh_n.fv_indices, mesh_n.vf_indices)
-    _, w_f = graphs.weighted_graph(ei_f, mesh_n.n_faces, fc, fn)
+    with tracing.span("build.graphs"):
+        ei_f = graphs.build_facet_graph(mesh_n.fv_indices, mesh_n.vf_indices)
+        _, w_f = graphs.weighted_graph(ei_f, mesh_n.n_faces, fc, fn)
     x_f = np.concatenate([(fc - centroid) * scale, fn], axis=1).astype(np.float32)
     y_f = None
     if mesh_o is not None:

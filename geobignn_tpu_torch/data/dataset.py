@@ -24,7 +24,7 @@ from collections import Counter
 
 import numpy as np
 
-from geobignn_tpu_torch import geometry, graphs, structs
+from geobignn_tpu_torch import geometry, graphs, structs, tracing
 from geobignn_tpu_torch.data import builder
 from geobignn_tpu_torch.meshio import TriMesh, read_obj
 from geobignn_tpu_torch.models.dual_gnn import CONV_SCHEDULE
@@ -158,6 +158,7 @@ def split_mesh(
         seed = int(left[np.argmax(((face_cent[left] - centroid) ** 2).sum(1))])
 
 
+@tracing.spanned("build.mesh")
 def process_one_mesh(
     noisy_path_or_mesh,
     submesh_size: int,
@@ -170,7 +171,9 @@ def process_one_mesh(
 
     Returns [(bv, bf, meta, V_idx, F_idx)].  The full-mesh centroid/scale is
     recorded on every patch (normalization is global, reference
-    code/dataset.py:140,151-152).  Caches each patch when cache_dir given."""
+    code/dataset.py:140,151-152).  Caches each patch when cache_dir given.
+    Spans (while a profiler records): `build.mesh` over `build.split` and
+    each patch's `build.raw`."""
     mesh_n = (
         read_obj(noisy_path_or_mesh)
         if isinstance(noisy_path_or_mesh, str)
@@ -193,7 +196,8 @@ def process_one_mesh(
     )
 
     results = []
-    patches = split_mesh(mesh_n, submesh_size)
+    with tracing.span("build.split"):
+        patches = split_mesh(mesh_n, submesh_size)
     for pi, (sub_n, v_idx, f_idx) in enumerate(patches):
         if len(patches) > 1 and sub_n.n_faces <= filter_patch_count:
             continue
@@ -209,7 +213,8 @@ def process_one_mesh(
                 mesh_o.points[v_idx], sub_n.fv_indices.copy()
             )
         # patches normalize in the FULL mesh's frame
-        bv, bf, meta = builder.build_raw(sub_n, sub_o, build_cfg, centroid, scale)
+        with tracing.span("build.raw"):
+            bv, bf, meta = builder.build_raw(sub_n, sub_o, build_cfg, centroid, scale)
         entry = (bv, bf, meta, v_idx, f_idx)
         if cache_path is not None:
             save_raw_sample(cache_path, *entry)
@@ -270,6 +275,7 @@ class BaseDualDataset:
     tables: bool = True
     bucket_of: list | None = None  # entry -> bucket id (bucketize())
 
+    @tracing.spanned("build.plan")
     def _compute_plan(self, granularity: int):
         plan, widths = None, None
         for bv, bf, meta, _, _ in self.entries:
@@ -319,6 +325,7 @@ class BaseDualDataset:
         return np.asarray([branch_messages(bv) + branch_messages(bf)
                            for bv, bf, _, _, _ in self.entries], dtype=np.int64)
 
+    @tracing.spanned("data.get")
     def get(self, idx: int, plan: structs.SizePlan | None = None) -> structs.DualSample:
         bv, bf, meta, _, _ = self.entries[idx]
         widths = getattr(self, "widths", None)

@@ -4,7 +4,8 @@ of the device's steps.
 Counterpart of geobignn_tpu/data/prefetch.py.  `prefetch_iter` is the JAX
 function: one worker thread runs `fetch` up to `depth` items ahead of the
 consumer, results arrive in input order, a fetch's exception surfaces at its
-own yield, and an early exit cancels the queued fetches.
+own yield, and an early exit cancels the queued fetches.  The consumer's wait
+for a result is the span `prefetch.wait` (while a profiler records).
 
 JAX gets its overlap from `device_put` only enqueueing the copy.  Here
 `device_iter` provides it: on the worker, a padded sample goes to pinned
@@ -25,6 +26,7 @@ from typing import Callable, Iterable, Iterator, TypeVar
 
 import torch
 
+from geobignn_tpu_torch import tracing
 from geobignn_tpu_torch.capture import map_tensors, tensors
 
 T = TypeVar("T")
@@ -45,12 +47,17 @@ def prefetch_iter(items: Iterable[T], fetch: Callable[[T], R], depth: int = 2) -
             for x in items:
                 q.append(ex.submit(fetch, x))
                 if len(q) > depth:
-                    yield q.popleft().result()
+                    yield _wait(q.popleft())
             while q:
-                yield q.popleft().result()
+                yield _wait(q.popleft())
         finally:  # consumer bailed early: drop queued work fast
             for f in q:
                 f.cancel()
+
+
+def _wait(future):
+    with tracing.span("prefetch.wait"):
+        return future.result()
 
 
 def device_iter(items: Iterable[T], fetch: Callable[[T], object], device,

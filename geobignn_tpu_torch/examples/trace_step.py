@@ -13,11 +13,14 @@ one graph replay a step), after two warm-up steps, under torch.profiler
 every kernel the trace recorded is summed by kernel name, then by group
 (the name without its template arguments and trailing digits), and the
 sum of the rows is set against the events' time: the busy share, the rest
-idle.  The window opens with a 50 ms settle and 256 spin kernels (left out
-of the rows), which take the profiler's losses of a window's first
-records.  On the CPU the rows are the operators' own CPU times and the
-time the host clock's.  The Chrome trace goes to `--trace-dir`
-(log/trace_step).
+idle.  On the card the idle time is then split by the innermost of the
+program's spans over it (tracing.py: `trainer.step`, `trainer.rotation`,
+`graph.run`, `graph.copy_inputs`, `graph.replay`, ...; "outside" where
+none is), as the benchmark's `loop_idle_pct` reads a traced window.  The
+window opens with a 50 ms settle and 256 spin kernels (left out of the
+rows), which take the profiler's losses of a window's first records.  On
+the CPU the rows are the operators' own CPU times and the time the host
+clock's.  The Chrome trace goes to `--trace-dir` (log/trace_step).
 
 Run:  python -m geobignn_tpu_torch.examples.trace_step [--subdiv 7 --batch 1
       --fc-float32 --halo-parts P --trace-dir DIR]
@@ -41,6 +44,9 @@ TOP_GROUPS, TOP_KERNELS = 25, 45
 
 
 ANNOTATIONS = ("primer", "traced steps")  # the window's own ranges, not kernels
+# the program's spans (tracing.py), by the prefix of their names
+SPANS = ("trainer.", "graph.", "model.", "optimizer.step", "data.", "prefetch.", "build.",
+         "predict.")
 
 
 def group_of(name: str) -> str:
@@ -98,6 +104,50 @@ def rows_of(prof, dev) -> list:
                 and e.name not in ANNOTATIONS and not getattr(e, "is_user_annotation", False)]
     return [(e.key, e.self_cpu_time_total) for e in prof.key_averages()
             if e.key not in ANNOTATIONS and e.self_cpu_time_total > 0]
+
+
+def complement(intervals, lo, hi) -> list:
+    """The stretches of [lo, hi] that no (start, end) interval covers."""
+    out, at = [], lo
+    for s, e in sorted(intervals):
+        if s > at:
+            out.append((at, min(s, hi)))
+        at = max(at, e)
+    if at < hi:
+        out.append((at, hi))
+    return [(s, e) for s, e in out if e > s]
+
+
+def idle_by_span(device: list, spans: list, window: tuple) -> collections.Counter:
+    """Microseconds of `window` that no device interval (start, end) covers,
+    by the innermost (shortest) program span (name, start, end) over them;
+    "outside" where no span is."""
+    ends = sorted({t for _, s, e in spans for t in (s, e)})
+    out = collections.Counter()
+    for lo, hi in complement(device, *window):
+        cuts = [lo] + [t for t in ends if lo < t < hi] + [hi]
+        for a, b in zip(cuts, cuts[1:]):
+            mid = (a + b) / 2
+            cover = [(e - s, name) for name, s, e in spans if s <= mid <= e]
+            out[min(cover)[1] if cover else "outside"] += b - a
+    return out
+
+
+def idle_of(prof, window_name: str = "traced steps") -> collections.Counter:
+    """idle_by_span over a profile's kernels and program spans, from the
+    start of its annotation `window_name` to the later of that span's end
+    and the last device interval's (on the card)."""
+    device, spans, window = [], [], None
+    for e in prof.events():
+        iv = (e.time_range.start, e.time_range.end)
+        if str(e.device_type).endswith("CUDA"):
+            if not getattr(e, "is_user_annotation", False):
+                device.append(iv)
+        elif e.name == window_name:
+            window = iv
+        elif e.name.startswith(SPANS):
+            spans.append((e.name,) + iv)
+    return idle_by_span(device, spans, (window[0], max([window[1]] + [e for _, e in device])))
 
 
 def attribute(rows: list, steps: int, step_ms: float) -> dict:
@@ -162,6 +212,9 @@ def main(argv=None) -> dict:
         _probe.row("trace-step-group", ms_per_step=us / 1e3 / args.steps, group=name[:120])
     for name, us in att["by_name"].most_common(TOP_KERNELS):
         _probe.row("trace-step-kernel", ms_per_step=us / 1e3 / args.steps, kernel=name[:160])
+    if cuda:  # the device's idle time by the innermost program span over it
+        for name, us in idle_of(prof).most_common():
+            _probe.row("trace-step-idle", ms_per_step=us / 1e3 / args.steps, span=name)
     return att
 
 

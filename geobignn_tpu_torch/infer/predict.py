@@ -39,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from geobignn_tpu_torch import capture, geometry, meshio
+from geobignn_tpu_torch import capture, geometry, meshio, tracing
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import builder, dataset as ds_mod
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
@@ -49,6 +49,7 @@ from geobignn_tpu_torch.utils import resolve_device
 _PKG = __name__.split(".")[0]
 
 
+@tracing.spanned("predict.update")
 def update_positions(
     points: torch.Tensor,  # (N, 3)
     fv_indices: torch.Tensor,  # (F, 3)
@@ -203,6 +204,7 @@ class Predictor:
         return cls(cfg, state, sub_size, device)
 
     @torch.no_grad()
+    @tracing.spanned("predict.forward")
     def forward(self, sample):
         """(positions, normals) of one padded sample, on the device.  On the
         card, one replay of the CUDA graph of the sample's merged plan (the
@@ -248,9 +250,14 @@ class Predictor:
         mem.widths = widths
         return mem
 
+    @tracing.spanned("predict.mesh")
     def predict_mesh(self, mesh_n: meshio.TriMesh):
-        """Returns (denoised positions before integration, face normals)."""
-        mem = self.patch_dataset(mesh_n)
+        """Returns (denoised positions before integration, face normals).
+        Spans (while a profiler records): `predict.mesh` over
+        `predict.host_build`, each patch's `predict.forward` and the
+        `predict.stitch` of the patches' predictions."""
+        with tracing.span("predict.host_build"):
+            mem = self.patch_dataset(mesh_n)
         entries = mem.entries
 
         def unpermute(arr, perm):
@@ -263,10 +270,11 @@ class Predictor:
 
         if len(entries) == 1:
             vert_p, norm_p = self._apply(mem.get(0))
-            nv, nf = mesh_n.n_vertices, mesh_n.n_faces
-            meta_ = entries[0][2]
-            vp = unpermute(vert_p[:nv], meta_.get("perm_v"))
-            np_arr = unpermute(norm_p[:nf], meta_.get("perm_f"))
+            with tracing.span("predict.stitch"):
+                nv, nf = mesh_n.n_vertices, mesh_n.n_faces
+                meta_ = entries[0][2]
+                vp = unpermute(vert_p[:nv], meta_.get("perm_v"))
+                np_arr = unpermute(norm_p[:nf], meta_.get("perm_f"))
         else:
             # overlap-averaged stitching (int32 counters)
             count_v = np.zeros((mesh_n.n_vertices, 1), dtype=np.int32)
@@ -274,12 +282,14 @@ class Predictor:
             np_arr = np.zeros((mesh_n.n_faces, 3), dtype=np.float32)
             for i, (bv, bf, meta_, v_idx, f_idx) in enumerate(entries):
                 vert_p, norm_p = self._apply(mem.get(i))
-                count_v[v_idx] += 1
-                vp[v_idx] += unpermute(vert_p[: bv.n_nodes], meta_.get("perm_v"))
-                np_arr[f_idx] += unpermute(norm_p[: bf.n_nodes], meta_.get("perm_f"))
-            vp /= np.maximum(count_v, 1)
-            norms = np.linalg.norm(np_arr, axis=1, keepdims=True)
-            np_arr /= np.maximum(norms, 1e-12)
+                with tracing.span("predict.stitch"):
+                    count_v[v_idx] += 1
+                    vp[v_idx] += unpermute(vert_p[: bv.n_nodes], meta_.get("perm_v"))
+                    np_arr[f_idx] += unpermute(norm_p[: bf.n_nodes], meta_.get("perm_f"))
+            with tracing.span("predict.stitch"):
+                vp /= np.maximum(count_v, 1)
+                norms = np.linalg.norm(np_arr, axis=1, keepdims=True)
+                np_arr /= np.maximum(norms, 1e-12)
 
         meta = entries[0][2]
         vp = vp / meta["scale"] + meta["centroid"]  # denormalize

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from geobignn_tpu_torch import geometry, params as params_mod
+from geobignn_tpu_torch import geometry, params as params_mod, tracing
 from geobignn_tpu_torch.ops import banded_cuda, blocksparse, feastconv, segment
 from geobignn_tpu_torch.ops import table as tbl
 from geobignn_tpu_torch.structs import BranchGraph, DualSample, GraphLevel
@@ -255,29 +255,35 @@ class DualGNN(nn.Module):
         out = torch.cat([_remat(head, f) for f in feat.chunk(n_chunks)])
         return out.to(torch.promote_types(out.dtype, torch.float32))
 
+    @tracing.spanned("model.forward")
     def forward(self, sample: DualSample, gp_devices=None):
         """`gp_devices`: the sharded model (parallel/api.py), every conv the
-        COO conv over its edge list cut across these devices."""
-        xyz = sample.v.x[:, :3]
-        x_v, h_f = sample.v.x, None
-        if hasattr(self, "fusion"):
-            h_v, h_f = self.fusion(sample.v.x, sample.f.x, sample)
-            x_v = torch.cat([x_v, h_v], dim=1)
-        feat_v = self.gnn_v(sample.v, x_v, gp_devices)
-        d = self._run_head(self.fc_v1, self.fc_v2, feat_v)
-        if self.force_depth:
-            d = d * sample.v.depth_direction
-        vert_p = d + xyz
+        COO conv over its edge list cut across these devices.  Spans (while
+        a profiler records): `model.forward` over `model.vertex`,
+        `model.facet_features` and `model.facet`."""
+        with tracing.span("model.vertex"):
+            xyz = sample.v.x[:, :3]
+            x_v, h_f = sample.v.x, None
+            if hasattr(self, "fusion"):
+                h_v, h_f = self.fusion(sample.v.x, sample.f.x, sample)
+                x_v = torch.cat([x_v, h_v], dim=1)
+            feat_v = self.gnn_v(sample.v, x_v, gp_devices)
+            d = self._run_head(self.fc_v1, self.fc_v2, feat_v)
+            if self.force_depth:
+                d = d * sample.v.depth_direction
+            vert_p = d + xyz
 
         # rebuild facet features from the denoised vertices (f32), both from
         # the corners of one gather
-        corners = tbl.table_gather(vert_p, sample.fv_indices, sample.fv_rev)
-        face_cent = corners.mean(dim=1)
-        face_norm = geometry.safe_normalize(torch.linalg.cross(
-            corners[:, 1] - corners[:, 0], corners[:, 2] - corners[:, 0], dim=-1))
-        parts_f = [sample.f.x, face_cent, face_norm] + ([h_f] if h_f is not None else [])
-        x_f = torch.cat(parts_f, dim=1)
+        with tracing.span("model.facet_features"):
+            corners = tbl.table_gather(vert_p, sample.fv_indices, sample.fv_rev)
+            face_cent = corners.mean(dim=1)
+            face_norm = geometry.safe_normalize(torch.linalg.cross(
+                corners[:, 1] - corners[:, 0], corners[:, 2] - corners[:, 0], dim=-1))
+            parts_f = [sample.f.x, face_cent, face_norm] + ([h_f] if h_f is not None else [])
+            x_f = torch.cat(parts_f, dim=1)
 
-        feat_f = self.gnn_f(sample.f, x_f, gp_devices)
-        n = self._run_head(self.fc_f1, self.fc_f2, feat_f)
+        with tracing.span("model.facet"):
+            feat_f = self.gnn_f(sample.f, x_f, gp_devices)
+            n = self._run_head(self.fc_f1, self.fc_f2, feat_f)
         return vert_p, geometry.safe_normalize(n)

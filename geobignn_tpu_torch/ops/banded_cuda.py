@@ -15,8 +15,8 @@ Counterpart of geobignn_tpu/ops/banded_pallas.py.  It holds
     `feast_conv_hybrid`.
 
 Each kernel source — the banded ones, the block-sparse ones that
-ops/blocksparse.py wraps and the nearest-distance one of ops/nn_cuda.py —
-is built with nvcc for sm_90a into its own
+ops/blocksparse.py wraps, the nearest-distance one of ops/nn_cuda.py and
+the timestamp of ops/clock_cuda.py — is built with nvcc for sm_90a into its own
 library under build/geobignn_tpu_torch/ at first use (one nvcc per source,
 started together), from the repo's sources only, and loaded through ctypes.
 Each schedule counts its forward and backward launches in `LAUNCHES`, the
@@ -53,7 +53,8 @@ SOURCES = {"fwd": os.path.join(_CSRC, "banded_fwd.cu"),
            "bwd": os.path.join(_CSRC, "banded_bwd.cu"),
            "bs_fwd": os.path.join(_CSRC, "blocksparse_fwd.cu"),
            "bs_bwd": os.path.join(_CSRC, "blocksparse_bwd.cu"),
-           "nearest": os.path.join(_CSRC, "nearest.cu")}
+           "nearest": os.path.join(_CSRC, "nearest.cu"),
+           "stamp": os.path.join(_CSRC, "stamp.cu")}
 HEADERS = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "geobignn_tpu_torch")
 LIBRARIES = {k: os.path.join(

@@ -67,11 +67,12 @@ import time
 import numpy as np
 import torch
 
-from geobignn_tpu_torch import capture, native
+from geobignn_tpu_torch import capture, native, tracing
 from geobignn_tpu_torch.config import Config
 from geobignn_tpu_torch.data import augment, prefetch
 from geobignn_tpu_torch.models import losses
 from geobignn_tpu_torch.models.dual_gnn import DualGNN
+from geobignn_tpu_torch.ops import clock_cuda
 from geobignn_tpu_torch.parallel import api
 from geobignn_tpu_torch.pool.dynamic import DualGNNDynamic, fill_missing_grads
 from geobignn_tpu_torch.train import checkpoint as ckpt
@@ -81,6 +82,43 @@ from geobignn_tpu_torch.utils import resolve_device
 
 METRIC_KEYS = ("loss", "loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f")
 EVAL_KEYS = ("loss_v", "loss_f", "error_v", "error_f", "n_v", "n_f")
+STAGES = ("step.fwd_ms", "step.bwd_ms", "step.opt_ms")  # between the four stamps
+STAGE_ROWS = 1024  # replays of the captured step whose stamps the clock keeps
+
+
+class _StageClock:
+    """The captured step's stage times on the card: four stamps in the
+    step's graph (ops/clock_cuda.py) — before the forward, after the loss,
+    after the backward, after Adam — fill a row of a ring of STAGE_ROWS
+    rows at every replay.  `mark` stamps only into a capture (the warm-up,
+    eager steps and the CPU stamp nothing)."""
+
+    def __init__(self, device):
+        self.table = torch.zeros((STAGE_ROWS, len(STAGES) + 1), dtype=torch.int64, device=device)
+        self.index = torch.zeros((), dtype=torch.int32, device=device)
+        # one stamp now, outside any capture: the kernel's module is loaded
+        # before a capture launches it
+        clock_cuda.stamp(self.table, self.index, 0)
+
+    def mark(self, col: int) -> None:
+        if torch.cuda.is_current_stream_capturing():
+            clock_cuda.stamp(self.table, self.index, col)
+
+    def restart(self) -> None:
+        self.index.zero_()
+
+    def count(self) -> None:
+        """Add the stage times of the replays since `restart` (the last
+        STAGE_ROWS of them; the device has run them) to the counters
+        `step.fwd_ms`, `step.bwd_ms`, `step.opt_ms`, and their number to
+        `step.stage_readings`."""
+        n = min(int(self.index), STAGE_ROWS)
+        if n:
+            t = self.table[:n].cpu()
+            ms = ((t[:, 1:] - t[:, :-1]).double() * 1e-6).sum(0).tolist()
+            for name, v in zip(STAGES, ms):
+                tracing.count(name, v)
+            tracing.count("step.stage_readings", n)
 
 
 def _metrics_of(vert_p, norm_p, sample, cfg: Config):
@@ -173,6 +211,7 @@ class Trainer:
         # the device (a captured step or eval forward adds into them)
         self._sums = {k: torch.zeros((), device=self.device) for k in METRIC_KEYS}
         self._eval_sums = {k: torch.zeros((), device=self.device) for k in EVAL_KEYS}
+        self._clock = _StageClock(self.device) if self.device.type == "cuda" else None
         self._sharded_step = None
         if self._mesh is not None:
             dynamic = isinstance(self.model, DualGNNDynamic)
@@ -199,6 +238,7 @@ class Trainer:
         return prefetch.device_iter(order, lambda i: ds.get(int(i), plan), self.device,
                                     self.cfg.prefetch_depth)
 
+    @tracing.spanned("trainer.rotation")
     def _rotation(self, seed: int):
         """The step's random rotation, drawn on the device from its seed
         (None without augmentation)."""
@@ -207,15 +247,23 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return augment.random_rotation_matrix(gen)
 
+    def _mark(self, col: int) -> None:
+        if self._clock is not None:
+            self._clock.mark(col)
+
     def _backward(self, sample, rot):
         """Forward and backward of one sample under rotation rot; gradients
         add into .grad."""
         if rot is not None:
             sample = augment.rotate_sample(sample, rot)
         vert_p, norm_p = self.model(sample)
-        loss, metrics = _metrics_of(vert_p, norm_p, sample, self.cfg)
-        loss.backward()
-        fill_missing_grads(self.model)
+        with tracing.span("model.loss"):
+            loss, metrics = _metrics_of(vert_p, norm_p, sample, self.cfg)
+        self._mark(1)
+        with tracing.span("model.backward"):
+            loss.backward()
+            fill_missing_grads(self.model)
+        self._mark(2)
         return metrics
 
     def _step(self, sample, seed: int):
@@ -227,7 +275,8 @@ class Trainer:
         if n_acc > 1:
             for prm in self.model.parameters():
                 prm.grad.div_(float(n_acc))
-        self.optimizer.step()
+        with tracing.span("optimizer.step"):
+            self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
     def _add_metrics(self, metrics) -> None:
@@ -237,10 +286,15 @@ class Trainer:
     def _captured_step(self, sample, rot) -> None:
         """What the graph of a step holds: forward, backward (into .grad,
         set to None first, so that the capture makes it and each replay
-        writes it anew), Adam and the metric sums."""
+        writes it anew), Adam and the metric sums; and the stage clock's
+        four stamps (_StageClock)."""
         self.optimizer.zero_grad(set_to_none=True)
-        self._add_metrics(self._backward(sample, rot))
-        self.optimizer.step()
+        self._mark(0)
+        metrics = self._backward(sample, rot)
+        with tracing.span("optimizer.step"):
+            self.optimizer.step()
+        self._mark(3)
+        self._add_metrics(metrics)
 
     def one_dispatch(self) -> bool:
         """Whether a step runs as one CUDA graph: on the card, one sample
@@ -256,7 +310,8 @@ class Trainer:
         eager step draws it, and copied in.  The first step of a shape runs
         eagerly on a side stream — the capture's warm-up — and then
         captures the graph; a failed capture raises."""
-        self._program(sample, self._rotation(seed))
+        with tracing.span("trainer.step"):
+            self._program(sample, self._rotation(seed))
 
     def _run_epoch_sharded(self, rng: np.random.Generator, logger=None):
         """One epoch on the (dcn, dp, gp) grid: global batches of dcn * dp *
@@ -290,31 +345,45 @@ class Trainer:
             logger.log("train", self.epoch, **agg)
         return agg
 
+    @tracing.spanned("trainer.epoch")
     def run_epoch(self, rng: np.random.Generator, logger: MetricLogger | None = None):
+        """One epoch.  While a profiler records, the stage times of its
+        replayed steps are read after the epoch's sync into the counters
+        `step.fwd_ms`, `step.bwd_ms`, `step.opt_ms` and
+        `step.stage_readings` (_StageClock)."""
         if self._sharded_step is not None:
             return self._run_epoch_sharded(rng, logger)
         cfg = self.cfg
-        order = rng.permutation(len(self.train_ds))
-        for v in self._sums.values():
-            v.zero_()
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        fused = self.one_dispatch()
+        with tracing.span("trainer.epoch_begin"):
+            order = rng.permutation(len(self.train_ds))
+            for v in self._sums.values():
+                v.zero_()
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            fused = self.one_dispatch()
+            clocked = fused and self._clock is not None and tracing.on()
+            if clocked:
+                self._clock.restart()
         t0 = time.time()
         n_acc = 0
-        for step, sample in enumerate(self._samples(self.train_ds, "t", order)):
-            seed = int(rng.integers(1 << 31))
-            if fused:
-                self.fused_step(sample, seed)
-                continue
-            metrics = self._step(sample, seed)
-            n_acc += 1
-            if n_acc == cfg.batch_size or step == len(order) - 1:
-                self._apply(n_acc)
-                n_acc = 0
-            self._add_metrics(metrics)
-        sums = torch.stack([self._sums[k] for k in METRIC_KEYS]).cpu().tolist()  # one sync
-        dt = max(time.time() - t0, 1e-9)
+        with tracing.span("trainer.steps"):
+            for step, sample in enumerate(self._samples(self.train_ds, "t", order)):
+                seed = int(rng.integers(1 << 31))
+                if fused:
+                    self.fused_step(sample, seed)
+                    continue
+                with tracing.span("trainer.step"):
+                    metrics = self._step(sample, seed)
+                    n_acc += 1
+                    if n_acc == cfg.batch_size or step == len(order) - 1:
+                        self._apply(n_acc)
+                        n_acc = 0
+                    self._add_metrics(metrics)
+        with tracing.span("trainer.epoch_sync"):
+            sums = torch.stack([self._sums[k] for k in METRIC_KEYS]).cpu().tolist()  # one sync
+            dt = max(time.time() - t0, 1e-9)
+            if clocked and tracing.on():
+                self._clock.count()
         n_steps = len(order)
         agg = {k: v / max(n_steps, 1) for k, v in zip(METRIC_KEYS, sums)}
         agg["samples_per_s"] = n_steps / dt
@@ -335,6 +404,7 @@ class Trainer:
         self._eval_sums["n_f"] += m["n_f"]
 
     @torch.no_grad()
+    @tracing.spanned("trainer.evaluate")
     def evaluate(self, logger: MetricLogger | None = None):
         """Node-count-weighted eval means (reference train_dual.py:233-263).
         On the card each sample is one replay of its shape's CUDA graph
@@ -342,14 +412,17 @@ class Trainer:
         the CPU and testing.eager_steps() run it eagerly.  One sync."""
         if self.eval_ds is None or len(self.eval_ds) == 0:
             return None
-        self.model.eval()
-        for v in self._eval_sums.values():
-            v.zero_()
-        run = self._eval_program if capture.one_card([self.device]) else self._eval_into
-        for sample in self._samples(self.eval_ds, "e", range(len(self.eval_ds))):
-            run(sample)
-        s = dict(zip(EVAL_KEYS, torch.stack(
-            [self._eval_sums[k] for k in EVAL_KEYS]).cpu().tolist()))
+        with tracing.span("trainer.eval_begin"):
+            self.model.eval()
+            for v in self._eval_sums.values():
+                v.zero_()
+            run = self._eval_program if capture.one_card([self.device]) else self._eval_into
+        with tracing.span("trainer.eval_steps"):
+            for sample in self._samples(self.eval_ds, "e", range(len(self.eval_ds))):
+                run(sample)
+        with tracing.span("trainer.eval_sync"):
+            s = dict(zip(EVAL_KEYS, torch.stack(
+                [self._eval_sums[k] for k in EVAL_KEYS]).cpu().tolist()))
         # an all-padded eval set has no valid nodes: report zeros, never inf
         if s["n_v"] == 0.0 or s["n_f"] == 0.0:
             print("WARNING: eval pass saw zero valid nodes; metrics are zeros")

@@ -40,9 +40,9 @@ import sys
 import time
 
 # the port's hand-written kernels (csrc/window_walk.cuh, window_bwd.cuh,
-# node_product.cuh, banded_common.cuh, nearest.cu), by name
+# node_product.cuh, banded_common.cuh, nearest.cu, stamp.cu), by name
 HAND_WRITTEN = ("row_walk_kernel", "col_walk_kernel", "node_product_kernel",
-                "scaled_operand_kernel", "nearest_small_k", "nearest_wide_k")
+                "scaled_operand_kernel", "nearest_small_k", "nearest_wide_k", "stamp_kernel")
 # autograd's backward of the index ops (the gathers of the pooling, unpooling
 # and boundary tables): index_put_ with accumulate sorts the indices (cub)
 # and then runs indexing_backward_kernel
@@ -89,6 +89,8 @@ def kernel_group(name):
         return "per-node products (Y, x̄, W̄, gy, out)"
     if hit == "scaled_operand_kernel":
         return "elementwise operands (V, G)"
+    if hit == "stamp_kernel":
+        return "stage clock (timestamps)"
     return "nearest distance"
 
 

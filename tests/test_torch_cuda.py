@@ -480,6 +480,113 @@ def test_a_replayed_step_reads_the_learning_rate_set_after_its_capture(cuda_devi
 
 
 @pytest.mark.cuda
+def test_a_traced_epoch_counts_its_graph_calls_and_stage_times(cuda_device):
+    """While a profiler records: the first call of a step captures
+    (`graph.captures`), each replay counts one `graph.runs` and copies every
+    tensor of (sample, rotation) into the static inputs; an epoch reads the
+    stage times of every replayed step.  With no profiler, nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geobignn_tpu_torch import capture, tracing
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.train.trainer import STAGES, Trainer
+
+    ds = _small_train_set()
+    tr = Trainer(Config(seed=0), ds, None, device=cuda_device)
+    samples = [tr._get(ds, "t", i) for i in range(2)]
+    inputs = capture.tensors((samples[0], tr._rotation(0)))
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):  # tracing on
+        for seed in range(3):
+            tr.fused_step(samples[seed % 2], seed)
+        torch.cuda.synchronize()
+        after_steps = tracing.counters()
+        tr.run_epoch(np.random.default_rng(0))
+    c = tracing.counters()
+    assert after_steps == {"graph.captures": 1, "graph.runs": 2,
+                           "graph.input_tensors": 2 * len(inputs),
+                           "graph.input_bytes": 2 * sum(t.numel() * t.element_size()
+                                                        for t in inputs)}
+    assert c["graph.runs"] == 2 + len(ds) and c["graph.captures"] == 1
+    assert c["graph.input_tensors"] == len(inputs) * c["graph.runs"]
+    assert c["step.stage_readings"] == len(ds) and all(c[k] > 0.0 for k in STAGES)
+    tracing.reset()
+    tr.run_epoch(np.random.default_rng(1))
+    assert tracing.counters() == {}
+
+
+@pytest.mark.cuda
+def test_the_stage_stamps_add_up_to_the_replay(cuda_device):
+    """The four stamps a step's capture holds: every replay fills a row of
+    the clock's ring, and a row's three intervals sum to within 2% of CUDA
+    events around its replay."""
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.train.trainer import STAGE_ROWS, Trainer
+
+    ds = _small_train_set()
+    tr = Trainer(Config(seed=0), ds, None, device=cuda_device)
+    sample = tr._get(ds, "t", 0)
+    tr.fused_step(sample, 0)  # the eager warm-up, then the capture
+    tr.fused_step(sample, 1)  # the first replay, which uploads the graph first
+    (graph,) = tr._program.graphs.values()
+    clock = tr._clock
+    clock.restart()
+    replays = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.graph.replay()
+        end.record()
+        replays.append((start, end))
+    torch.cuda.synchronize()
+    assert int(clock.index) == 5 and clock.table.shape == (STAGE_ROWS, 4)
+    rows = clock.table[:5].cpu()
+    read = [(start.elapsed_time(end), ((row[1:] - row[:-1]).double() * 1e-6).tolist())
+            for (start, end), row in zip(replays, rows)]
+    for replay, parts in read:
+        print(f"replay {replay:.4f} ms, stages {parts}")
+    for replay, parts in read:
+        assert all(p > 0.0 for p in parts)
+        assert abs(sum(parts) - replay) <= 0.02 * replay
+
+
+@pytest.mark.cuda
+def test_a_traced_fit_captures_under_the_profiler(cuda_device, tmp_path):
+    """The README's use, `with profiling.trace(d): trainer.fit()`, from a
+    fresh trainer: the step's and the eval pass's graphs are captured while
+    CUPTI records the card, the graphed run equals an untraced one, and
+    trace.json and counters.json are written."""
+    import json
+    import os
+
+    from geobignn_tpu_torch.config import Config
+    from geobignn_tpu_torch.train import profiling
+    from geobignn_tpu_torch.train.trainer import STAGES, Trainer
+
+    ds = ev = _small_train_set()
+    cfg = Config(seed=0, max_epoch=2)
+    traced = Trainer(cfg, ds, ev, device=cuda_device)
+    with profiling.trace(str(tmp_path)):
+        traced.fit()
+    plain = Trainer(cfg, ds, ev, device=cuda_device)
+    plain.fit()
+    for a, b in zip(traced.model.parameters(), plain.model.parameters()):
+        assert torch.equal(a, b)
+    with open(os.path.join(tmp_path, "counters.json")) as f:
+        c = json.load(f)
+    assert c["graph.captures"] == 2  # the step's graph and the eval pass's
+    assert len(traced._program.graphs) == 1 and len(traced._eval_program.graphs) == 1
+    steps = cfg.max_epoch * len(ds)
+    assert c["graph.runs"] == (steps - 1) + (cfg.max_epoch * len(ev) - 1)
+    assert c["step.stage_readings"] == steps - 1 and all(c[k] > 0.0 for k in STAGES)
+    with open(os.path.join(tmp_path, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"graph.capture", "graph.run", "graph.replay", "trainer.epoch"} <= names
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.cuda
 def test_graphed_forward_matches_eager_and_counts_its_launches(cuda_device):
     """Predictor.forward replays one graph per merged plan: the patches'
     outputs equal the eager forward's; the wrappers count the first patch's

@@ -174,6 +174,8 @@ def _profile_module():
     ("(anonymous namespace)::scaled_operand_kernel(float const*, float const*)",
      "elementwise operands (V, G)"),
     ("void (anonymous namespace)::nearest_small_k(float const*)", "nearest distance"),
+    ("(anonymous namespace)::stamp_kernel(long long*, int*, int, int, int)",
+     "stage clock (timestamps)"),
     ("void at::native::(anonymous namespace)::indexing_backward_kernel<float, 4>(long const*)",
      "index backward (autograd)"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>(int)",

@@ -5,7 +5,7 @@ the same sample as geobignn_tpu/train/roofline.py, with the peak passed in
 (JAX reads 197 TFLOP/s for the CPU device): the counts and every output
 key equal, for banded levels, dense tables and COO edges.  Without a card
 the port's roofline raises unless given the peak.  train/profiling.py's
-host-side parts: the fence, the host-clock timer, the trace file.
+host-side parts: the fence, the trace file and the counters beside it.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ from __future__ import annotations
 import json
 import os
 
-import numpy as np
 import pytest
 import torch
 
@@ -81,14 +80,9 @@ def test_profiling_host_parts(tmp_path):
     x = torch.arange(5.0) + 2
     assert profiling.device_sync(x) == 2.0
     assert profiling.device_sync({"loss": (x, x)}) == 2.0
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer:
-            x.sum()
-    summ = timer.summary()
-    assert summ["n"] == 3 and summ["max_ms"] >= summ["p50_ms"] >= 0
     with profiling.trace(str(tmp_path)):
         (x * 2).sum()
     with open(os.path.join(tmp_path, "trace.json")) as fh:
         assert json.load(fh)["traceEvents"]
-    assert np.isfinite(summ["mean_ms"])
+    with open(os.path.join(tmp_path, "counters.json")) as fh:
+        assert json.load(fh) == {}  # nothing counted: no graph ran
