@@ -57,10 +57,11 @@
 //         backward call); up to K = 640 the kernel is held to 128 registers
 //         so that two CTAs share an SM;
 //   - every product over the nodes' K columns — Y (#4), gy (#3), x̄ (#4),
-//     W̄ — is the tiled kernel of node_product.cuh; G of #4 and V of #3 are
-//     elementwise.  W̄ comes as per-row-block partials that the wrapper sums,
-//     as XLA sums the TPU kernel's W̄ slabs.
-// Every product is an f32 FMA over cd() operands.
+//     W̄ — is a tiled kernel of node_product.cuh (Y and gy, whose operands
+//     are both cast, on the tensor cores under bf16); G of #4 and V of #3
+//     are elementwise.  W̄ comes as per-row-block partials that the wrapper
+//     sums, as XLA sums the TPU kernel's W̄ slabs.
+// Every product sums exact products of cd() operands in f32.
 
 #pragma once
 
@@ -346,13 +347,8 @@ int launch_window_bwd(const float* r, const float* p, const float* x,
                             s>>>(r, gout, g, n, heads, cv, ldk, bf16);
     err = (int)cudaGetLastError();
   } else {  // gy = cd(gout) cd(W_flat)^T, G = cd(gy r)
-    ProductArgs q{};
-    q.a = gout; q.b = w; q.c = g; q.raw = gy; q.scale = r;
-    q.m = n; q.n = kk; q.k = c_out;
-    q.lda = c_out; q.ldb = c_out; q.ldc = ldk;
-    q.cast_a = 1; q.cast_b = 1; q.bf16 = bf16;
-    q.heads = heads; q.cv = cv;
-    err = launch_node_product<false, true, false, true>(q, 1, s);
+    err = launch_af_row_operand(r, gout, w, g, gy, n, heads, c_in, c_out, ldk,
+                                bf16, s);
   }
   if (err) return timer.finish(err);
   timer.mark();

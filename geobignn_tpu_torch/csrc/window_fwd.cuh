@@ -16,8 +16,9 @@
 //            = sum_h zr[t, h*C_out + o]   (transform-first, the head sum)
 // where cd() rounds to bf16 when the compute dtype is bf16 (identity for
 // f32): the casts sit where the Pallas bodies put them, and every product
-// of two bf16 values is exact in f32, so f32 FMAs reproduce the TPU's
-// bf16-operand / f32-accumulate products up to summation order.
+// of two bf16 values is exact in f32, so f32 FMAs or bf16 mma with f32
+// accumulators reproduce the TPU's bf16-operand / f32-accumulate products
+// up to summation order.
 //
 // What bounds it on the H100: bytes — the int8 mask and the (N, C)
 // operands; only about 12 of a row's window slots are set, so the window
@@ -26,7 +27,7 @@
 // densely on the MXU; here nothing is computed for a slot that is not set:
 //   - V is built once per node: an elementwise launch (aggregate-first), or
 //     the tiled product Y = cd(x) cd(W2) with V = cd(p Y) as its epilogue
-//     (transform-first; node_product.cuh);
+//     (transform-first; node_product.cuh, on the tensor cores under bf16);
 //   - one warp per row walks the row's set slots with all K = H*cv columns
 //     of Z in registers (window_walk.cuh): the mask, r and p are read once
 //     per row, whatever K is;

@@ -101,8 +101,8 @@ def _import_pinned(run_dir: str):
     live package the first displaced, so one unpin restores it.
 
     The snapshot's modules count their kernel launches in the live
-    package's counters (every `LAUNCHES` of the snapshot is rebound to the
-    live dict), so a process has one place to read them."""
+    package's counters (every `LAUNCHES` and `PRODUCTS` of the snapshot is
+    rebound to the live dict), so a process has one place to read them."""
     global _PINNED_STATE
     bak = os.path.abspath(os.path.join(run_dir, "code_bak"))
     if not os.path.isdir(os.path.join(bak, _PKG)):
@@ -128,11 +128,12 @@ def _import_pinned(run_dir: str):
         if held:
             sys.path.insert(0, held["bak"])
         raise
-    counters = getattr(live.get(_PKG + ".ops.banded_cuda"), "LAUNCHES", None)
-    if counters is not None:
-        for m in _package_modules():
-            if isinstance(getattr(sys.modules[m], "LAUNCHES", None), dict):
-                sys.modules[m].LAUNCHES = counters
+    for name in ("LAUNCHES", "PRODUCTS"):
+        counters = getattr(live.get(_PKG + ".ops.banded_cuda"), name, None)
+        if counters is not None:
+            for m in _package_modules():
+                if isinstance(getattr(sys.modules[m], name, None), dict):
+                    setattr(sys.modules[m], name, counters)
     _PINNED_STATE = dict(live=live, bak=bak)
     return mod
 

@@ -21,9 +21,11 @@ library under build/geobignn_tpu_torch/ at first use (one nvcc per source,
 started together), from the repo's sources only, and loaded through ctypes.
 Each schedule counts its forward and backward launches in `LAUNCHES`, the
 block-sparse ones under `bs_` names, the nearest-distance kernel under
-`nearest`.  One launch of a wrapper is a short sequence of kernels (the
-per-node operand or product, the walk over the set mask slots, the
-products that close it: csrc/window_fwd.cuh, window_bwd.cuh); handed a dict
+`nearest`; `PRODUCTS` counts the per-node products those launches ran, by
+route (`mma_route`: the tensor cores or the CUDA cores).  One launch of a
+wrapper is a short sequence of kernels (the per-node operand or product, the
+walk over the set mask slots, the products that close it:
+csrc/window_fwd.cuh, window_bwd.cuh); handed a dict
 as `parts`, a wrapper fills it with each kernel's milliseconds (CUDA
 events inside the library), under the names of `FWD_PARTS` / `BWD_PARTS`.
 
@@ -70,6 +72,12 @@ LAUNCHES = {"aggregate_first": 0, "transform_first": 0,
             "bs_aggregate_first_bwd": 0, "bs_transform_first_bwd": 0,
             "nearest": 0}
 
+# the per-node products of those launches by route (csrc/node_product.cuh):
+# "mma" node_product_kernel_mma on the tensor cores, "simt" node_product_kernel
+# on the CUDA cores; a launch of either is one kernel of its name in a trace
+PRODUCTS = {"mma": 0, "simt": 0}
+MMA_MAX_K = 128  # kMmaMaxK of csrc/node_product.cuh
+
 # the kernels of one launch sequence, in order, by schedule (False:
 # aggregate-first, True: transform-first)
 FWD_PARTS = {False: ("operand", "window kernel", "output product"),
@@ -85,8 +93,35 @@ BUILD_LOG = ""  # nvcc/ptxas output of the last build (registers, smem)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PRODUCTS):
+        for k in counts:
+            counts[k] = 0
+
+
+def mma_route(a: torch.Tensor, k: int, compute_dtype) -> bool:
+    """csrc/node_product.cuh's `mma_route`: a product whose two operands are
+    cast runs on the tensor cores when they are bf16 numbers, its
+    contraction k is whole m16n8k16 steps that an A tile holds, and A's rows
+    start on 16-byte boundaries."""
+    return (compute_dtype == torch.bfloat16 and 16 <= k <= MMA_MAX_K and k % 16 == 0
+            and a.data_ptr() % 16 == 0)
+
+
+def count_products(tf: bool, backward: bool, x, gout, compute_dtype) -> None:
+    """Adds one launch sequence's per-node products (csrc/window_fwd.cuh,
+    window_bwd.cuh) to PRODUCTS: the product of two cast operands — Y / V
+    where the schedule transforms first, gy / G in the aggregate-first
+    backward — on `mma_route`'s route; out, x̄ and W̄, whose other operand
+    is an f32 sum, on the CUDA cores."""
+    if tf:
+        cast, simt = (x, x.shape[1]), (2 if backward else 0)
+    elif backward:
+        cast, simt = (gout, gout.shape[1]), 1
+    else:
+        cast, simt = None, 1
+    mma = cast is not None and mma_route(*cast, compute_dtype)
+    PRODUCTS["mma"] += int(mma)
+    PRODUCTS["simt"] += simt + int(cast is not None and not mma)
 
 
 def _nvcc() -> str:
@@ -468,6 +503,7 @@ def _launch(r, p, x, w, m, compute_dtype, parts=None) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"banded aggregate kernel launch failed: CUDA error {rc}")
     LAUNCHES["transform_first" if tf else "aggregate_first"] += 1
+    count_products(tf, False, x, None, compute_dtype)
     ms.fill(FWD_PARTS[tf])
     return out
 
@@ -504,6 +540,7 @@ def _launch_bwd(r, p, x, w, m, gout, compute_dtype, parts=None):
     if rc != 0:
         raise RuntimeError(f"banded aggregate backward launch failed: CUDA error {rc}")
     LAUNCHES["transform_first_bwd" if tf else "aggregate_first_bwd"] += 1
+    count_products(tf, True, x, gout, compute_dtype)
     ms.fill(BWD_PARTS[tf])
     wbar = wpart.sum(dim=0)
     if tf:

@@ -22,7 +22,8 @@ product instead of gathers.  It holds
 torch tensor: `structs.to(device)` widens index arrays, torch gathers with
 it, and the kernels read it as 64-bit.  The wrappers check that type and
 raise on any other.  Launches are counted in `banded_cuda.LAUNCHES` under
-`bs_aggregate_first`, `bs_transform_first` and their `_bwd` names.
+`bs_aggregate_first`, `bs_transform_first` and their `_bwd` names, their
+per-node products in `banded_cuda.PRODUCTS`.
 """
 
 from __future__ import annotations
@@ -217,6 +218,7 @@ def _launch(r, p, x, w, m, blk_idx, compute_dtype, parts=None) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"block-sparse aggregate kernel launch failed: CUDA error {rc}")
     LAUNCHES["bs_transform_first" if tf else "bs_aggregate_first"] += 1
+    banded_cuda.count_products(tf, False, x, None, compute_dtype)
     ms.fill(banded_cuda.FWD_PARTS[tf])
     return out
 
@@ -267,6 +269,7 @@ def _launch_bwd(r, p, x, w, m, blk_idx, gout, compute_dtype, parts=None):
     if rc != 0:
         raise RuntimeError(f"block-sparse aggregate backward launch failed: CUDA error {rc}")
     LAUNCHES["bs_transform_first_bwd" if tf else "bs_aggregate_first_bwd"] += 1
+    banded_cuda.count_products(tf, True, x, gout, compute_dtype)
     ms.fill(banded_cuda.BWD_PARTS[tf])
     wbar = wpart.sum(dim=0)
     if tf:

@@ -42,7 +42,8 @@ import time
 # the port's hand-written kernels (csrc/window_walk.cuh, window_bwd.cuh,
 # node_product.cuh, banded_common.cuh, nearest.cu, stamp.cu), by name
 HAND_WRITTEN = ("row_walk_kernel", "col_walk_kernel", "node_product_kernel",
-                "scaled_operand_kernel", "nearest_small_k", "nearest_wide_k", "stamp_kernel")
+                "node_product_kernel_mma", "scaled_operand_kernel", "nearest_small_k",
+                "nearest_wide_k", "stamp_kernel")
 # autograd's backward of the index ops (the gathers of the pooling, unpooling
 # and boundary tables): index_put_ with accumulate sorts the indices (cub)
 # and then runs indexing_backward_kernel

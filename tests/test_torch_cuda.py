@@ -136,6 +136,142 @@ def test_backward_kernel_matches_plain_on_card(c_in, c_out, cuda_device):
             assert err <= tol * float(ref.abs().max()), (name, dt, err)
 
 
+# the main path's widths of the products routed to the tensor cores (csrc/
+# node_product.cuh): Y / V of the narrowing convs, gy / G of the widening ones
+ROUTED_WIDTHS = pytest.mark.parametrize(
+    "c_in,c_out", [(128, 64), (64, 32), (12, 32), (32, 64), (64, 128), (128, 128)],
+    ids=["tf-128-64", "tf-64-32", "af-12-32", "af-32-64", "af-64-128", "af-128-128"])
+# (icosphere subdivision, tile): N 2,592 rows, a ragged count of 64-row tiles,
+# and N 256, the launch-bound size of the halo convergence runs
+ROUTED_SIZES = pytest.mark.parametrize("subdiv,tile", [(4, 96), (2, 128)],
+                                       ids=["ragged", "tiny"])
+
+
+def _product_counts(fn):
+    """PRODUCTS' increase over fn() (synchronised)."""
+    before = dict(banded_cuda.PRODUCTS)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: banded_cuda.PRODUCTS[k] - before[k] for k in before}
+
+
+@pytest.mark.cuda
+@ROUTED_WIDTHS
+@ROUTED_SIZES
+def test_routed_products_match_plain_on_card(c_in, c_out, subdiv, tile, cuda_device):
+    """#1-#4 with their cast-operand products on the tensor cores (bf16) and
+    on the CUDA cores (float32): the forward and each cotangent against the
+    plain versions, and PRODUCTS counting each sequence's products by route
+    (Y / V forward and backward, gy / G on the tensor cores; out, x̄, W̄ and
+    every float32 product on the CUDA cores)."""
+    *args, gout = _problem(c_in, c_out, cuda_device, subdiv=subdiv, tile=tile, seed=8)
+    assert args[2].shape[0] == {(4, 96): 2592, (2, 128): 256}[(subdiv, tile)]
+    tf = c_out < c_in
+    routed = {"fwd": int(tf), "bwd": 1}
+    simt = {"fwd": 0 if tf else 1, "bwd": 2 if tf else 1}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        bf16 = dt == torch.bfloat16
+        out, fwd = _product_counts(lambda: banded_cuda.banded_aggregate(*args, compute_dtype=dt))
+        got, bwd = _product_counts(
+            lambda: banded_cuda.banded_aggregate_bwd(*args, gout, compute_dtype=dt))
+        for tag, counted in (("fwd", fwd), ("bwd", bwd)):
+            assert counted == {"mma": routed[tag] if bf16 else 0,
+                               "simt": simt[tag] + (0 if bf16 else routed[tag])}, (tag, dt)
+        ref = banded_cuda.banded_aggregate_plain(*args, compute_dtype=dt)
+        assert float((out - ref).abs().max()) <= tol * float(ref.abs().max()), dt
+        want = banded_cuda.banded_aggregate_bwd_plain(*args, gout, compute_dtype=dt)
+        for name, g, ref in zip(("r", "p", "x", "w"), got, want):
+            err = float((g - ref).abs().max())
+            assert err <= tol * float(ref.abs().max()), (name, dt, err)
+
+
+def _scratch_filled_with_nan(monkeypatch):
+    """The wrappers' torch.empty scratch, filled with NaN and kept: a column
+    the kernels leave unwritten stays NaN."""
+    made, empty = [], torch.empty
+
+    def nan_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        if t.is_floating_point():
+            t.fill_(float("nan"))
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    return made
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out", [(64, 6), (128, 64), (6, 32), (12, 32)],
+                         ids=["tf-64-6", "tf-128-64", "af-6-32", "af-12-32"])
+def test_tensor_core_operands_are_exact_and_zero_padded(c_in, c_out, cuda_device,
+                                                        monkeypatch):
+    """The tensor-core route's operands, read from the wrappers' scratch:
+    V = cd(p Y) and G = cd(r gy) within one bf16 step of the plain operands
+    (the raw Y and gy differ by summation order alone), their padding
+    columns up to the 16-byte row stride exactly zero (9 x 6 = 54 of 56)."""
+    *args, gout = _problem(c_in, c_out, cuda_device, subdiv=3, seed=9)
+    r, p, x, w, m = args
+    tf = c_out < c_in
+    heads = r.shape[1]
+    cv = c_out if tf else c_in
+    kk = heads * cv
+    made = _scratch_filled_with_nan(monkeypatch)
+    _, counted = _product_counts(lambda: banded_cuda._launch_bwd(*args, gout, torch.bfloat16))
+    monkeypatch.undo()
+    assert counted["mma"] == 1
+    v, g, raw, _ = made[0]
+    ldk = v.shape[1]
+    assert ldk == -(-kk // 4) * 4
+    cd = lambda t: t.to(torch.bfloat16).float()
+    if tf:  # V = cd(p Y), Y = cd(x) cd(W2)
+        raw_ref = cd(x) @ cd(w.permute(1, 0, 2).reshape(c_in, kk))
+        heads_of = p.repeat_interleave(cv, dim=1)
+        op = v
+    else:  # G = cd(gy r), gy = cd(gout) cd(W_flat)^T
+        raw_ref = cd(gout) @ cd(w.reshape(kk, c_out)).T
+        heads_of = r.repeat_interleave(cv, dim=1)
+        op = g
+    op_ref = cd(heads_of * raw_ref)
+    for t in (op, raw):
+        assert torch.equal(t[:, kk:], torch.zeros_like(t[:, kk:]))
+    # the raw sums differ by their order alone; a scaled value rounds to the
+    # same bf16 number or a neighbour
+    sum_err = 1e-5 * float(raw_ref.abs().max())
+    assert float((raw[:, :kk] - raw_ref).abs().max()) <= sum_err
+    step = torch.maximum(op[:, :kk].abs(), op_ref.abs()) * 2.0 ** -7
+    assert bool(((op[:, :kk] - op_ref).abs() <= step + heads_of * sum_err).all())
+
+
+@pytest.mark.cuda
+def test_product_counts_match_the_trace(cuda_device):
+    """PRODUCTS against the profiler: each counted product is one kernel of
+    its route's name, node_product_kernel_mma on the tensor cores and
+    node_product_kernel<...> on the CUDA cores."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    for c_in, c_out in ((64, 32), (12, 32)):
+        *args, gout = _problem(c_in, c_out, cuda_device, subdiv=3, seed=10)
+        for dt in (torch.bfloat16, torch.float32):
+            calls.append(lambda a=args, g=gout, d=dt: (
+                banded_cuda.banded_aggregate(*a, compute_dtype=d),
+                banded_cuda.banded_aggregate_bwd(*a, g, compute_dtype=d)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, counted = _product_counts(lambda: [c() for c in calls])
+    seen = {"mma": 0, "simt": 0}
+    for e in prof.key_averages():
+        if "node_product_kernel_mma" in e.key:
+            seen["mma"] += e.count
+        elif "node_product_kernel<" in e.key:
+            seen["simt"] += e.count
+    # tf bf16: Y/V twice on the mma route, x̄ and W̄ on the simt one; af bf16:
+    # gy on mma, out and W̄ on simt; float32: all of them on simt
+    assert counted == {"mma": 2 + 1, "simt": 2 + 2 + 4 + 3}
+    assert seen == counted
+
+
 @pytest.mark.cuda
 @SCHEDULES
 def test_conv_gradients_on_card_match_cpu(c_in, c_out, cuda_device):

@@ -150,6 +150,94 @@ def test_dense_window_walk_and_naive_products_are_gone():
     assert "node_product_kernel" in _read("node_product.cuh")
 
 
+# the tensor-core product's name in a trace (demangled, as torch's profiler
+# reports it)
+MMA_TRACE_NAME = ("void (anonymous namespace)::node_product_kernel_mma<true, 128>"
+                  "((anonymous namespace)::MmaArgs)")
+
+
+def test_tensor_core_product_is_a_bf16_mma_with_f32_accumulators():
+    """The products of two cast operands have a tensor-core kernel whose
+    name holds `node_product_kernel` (the benchmark and the profile find the
+    per-node products by it): bf16 operands, f32 accumulators, and both
+    routed launches (Y / V, gy / G) reach it; the SIMT kernel stays."""
+    src = _read("node_product.cuh")
+    code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
+    kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                         code)
+    assert set(kernels) == {"node_product_kernel", "node_product_kernel_mma"}
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
+    assert "__floats2bfloat162_rn" in code and "float acc[2][4][4]" in code
+    for launcher in ("launch_tf_operand", "launch_af_row_operand"):
+        body = code[code.index(f"inline int {launcher}("):]
+        body = body[:body.index("\n}\n")]
+        assert "mma_route(" in body and "launch_node_product_mma<" in body, launcher
+        assert "launch_node_product<" in body, launcher  # the CUDA-core route stays
+    assert "launch_af_row_operand(" in _read("window_bwd.cuh")
+    assert "launch_tf_operand(" in _read("window_fwd.cuh")
+
+
+def test_routing_rule_matches_the_source():
+    """banded_cuda.mma_route, which the wrappers count by, is the rule of
+    node_product.cuh's mma_route: bf16, 16 <= k <= kMmaMaxK, k a multiple
+    of 16, A 16-byte aligned."""
+    m = re.search(r"constexpr int kMmaMaxK = (\d+);", _read("node_product.cuh"))
+    assert int(m.group(1)) == banded_cuda.MMA_MAX_K
+    src = _read("node_product.cuh")
+    rule = src[src.index("inline bool mma_route("):]
+    rule = rule[:rule.index("}")]
+    for term in ("bf16 != 0", "k >= 16", "k <= kMmaMaxK", "k % 16 == 0", "& 15) == 0"):
+        assert term in rule, term
+
+
+@pytest.mark.parametrize("k,dtype,offset,routed", [
+    (64, torch.bfloat16, 0, True), (128, torch.bfloat16, 0, True),
+    (16, torch.bfloat16, 0, True), (32, torch.bfloat16, 0, True),
+    (12, torch.bfloat16, 0, False), (144, torch.bfloat16, 0, False),
+    (40, torch.bfloat16, 0, False), (64, torch.float32, 0, False),
+    (64, torch.bfloat16, 1, False),
+])
+def test_mma_route_cases(k, dtype, offset, routed):
+    base = torch.zeros(8 * k + 4, dtype=torch.float32)
+    a = base[offset:offset + 8 * k].reshape(8, k)
+    assert (a.data_ptr() % 16 == 0) == (offset == 0)
+    assert banded_cuda.mma_route(a, k, dtype) is routed
+
+
+@pytest.mark.parametrize("c_in,c_out,backward,dtype,counts", [
+    (64, 32, False, torch.bfloat16, {"mma": 1, "simt": 0}),    # Y / V
+    (64, 32, True, torch.bfloat16, {"mma": 1, "simt": 2}),     # Y / V; x̄, W̄
+    (12, 32, False, torch.bfloat16, {"mma": 0, "simt": 1}),    # out
+    (12, 32, True, torch.bfloat16, {"mma": 1, "simt": 1}),     # gy / G; W̄
+    (64, 32, True, torch.float32, {"mma": 0, "simt": 3}),
+    (12, 32, True, torch.float32, {"mma": 0, "simt": 2}),
+    (6, 12, True, torch.bfloat16, {"mma": 0, "simt": 2}),      # gy at k 12
+], ids=["tf", "tf-bwd", "af", "af-bwd", "tf-bwd-f32", "af-bwd-f32", "af-bwd-k12"])
+def test_products_are_counted_by_route(c_in, c_out, backward, dtype, counts, monkeypatch):
+    monkeypatch.setattr(banded_cuda, "PRODUCTS", {"mma": 0, "simt": 0})
+    x = torch.zeros((64, c_in))
+    gout = torch.zeros((64, c_out))
+    tf = banded_cuda.use_transform_first(c_in, c_out)
+    banded_cuda.count_products(tf, backward, x, gout if backward else None, dtype)
+    assert banded_cuda.PRODUCTS == counts
+
+
+def test_reset_launches_zeroes_the_product_counts(monkeypatch):
+    monkeypatch.setattr(banded_cuda, "PRODUCTS", {"mma": 3, "simt": 5})
+    banded_cuda.reset_launches()
+    assert banded_cuda.PRODUCTS == {"mma": 0, "simt": 0}
+
+
+def test_benchmark_finds_the_tensor_core_product_by_name():
+    """benchmark/metrics/agg_roofline_pct.py sums the aggregates' device time
+    by substrings of their names: the tensor-core product is among them."""
+    spec = importlib.util.spec_from_file_location(
+        "agg_roofline_pct", os.path.join(ROOT, "benchmark", "metrics", "agg_roofline_pct.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert any(k in MMA_TRACE_NAME for k in mod.AGGREGATE_KERNELS)
+
+
 def _profile_module():
     spec = importlib.util.spec_from_file_location(
         "profile_train_step", os.path.join(ROOT, "profile_train_step.py"))
@@ -171,6 +259,7 @@ def _profile_module():
      "banded backward column pass"),
     ("void (anonymous namespace)::node_product_kernel<false, true, true, false>(ProductArgs)",
      "per-node products (Y, x̄, W̄, gy, out)"),
+    (MMA_TRACE_NAME, "per-node products (Y, x̄, W̄, gy, out)"),
     ("(anonymous namespace)::scaled_operand_kernel(float const*, float const*)",
      "elementwise operands (V, G)"),
     ("void (anonymous namespace)::nearest_small_k(float const*)", "nearest distance"),
@@ -199,6 +288,7 @@ def test_profile_groups_kernels_by_their_present_names(name, group):
     ("void (anonymous namespace)::col_walk_kernel<false, 9>(float const*)", None),
     ("void (anonymous namespace)::node_product_kernel<false, true, true, false>(ProductArgs)",
      None),
+    (MMA_TRACE_NAME, None),
 ])
 def test_profile_names_the_aggregate_of_a_walk(name, aggregate):
     """Each launch of an aggregate runs one walk kernel, whose template

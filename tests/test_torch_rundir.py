@@ -329,7 +329,8 @@ def test_pinned_inference_uses_snapshot(tmp_path, port_run):
     """from_run (pinned, the default) runs the run's code_bak snapshot, not
     the live package: a marker edit to the SNAPSHOT's model shows up in the
     predictions, while pinned=False (live code) is unaffected.  The
-    snapshot counts its launches in the live package's counters."""
+    snapshot counts its launches and products in the live package's
+    counters."""
     src_run, _ = port_run
     run_dir = str(tmp_path / "run_pinned")
     shutil.copytree(src_run, run_dir)
@@ -349,6 +350,7 @@ def test_pinned_inference_uses_snapshot(tmp_path, port_run):
         assert snap_cuda is not banded_cuda and snap_cuda.LAUNCHES is banded_cuda.LAUNCHES
         assert sys.modules["geobignn_tpu_torch.ops.blocksparse"].LAUNCHES \
             is banded_cuda.LAUNCHES
+        assert snap_cuda.PRODUCTS is banded_cuda.PRODUCTS
         assert snap_cuda.BUILD_DIR == os.path.join(run_dir, "code_bak", "build",
                                                    "geobignn_tpu_torch")
         vp, _ = pred.predict_mesh(mesh)
