@@ -1,17 +1,17 @@
 """The readings the limits of `correct` are set from, on the chip.
 
     python3 benchmark/control.py --workload patch.train --seeds 1-12 \
-        --variants program,bf16_activations,half_batch
+        --variants program,control,half_batch
 
 For every seed and variant, one set-up and one pass of the cell (no timed
 window) judged as a run judges it, with every compared number printed as a
 JSON line.  Variants:
 
-  program           the program as the configuration states it;
-  bf16_activations  the control: the program's own path at the precision
-                    below the configuration's float32 activations
-                    (Config(precision="bfloat16"));
-  <fault>           the program with a fault of yardstick/faults.py planted.
+  program  the program as the configuration states it;
+  control  the program with the Config overrides of the configuration
+           file's "control" key, by default {"precision": "bfloat16"}:
+           its own path at the precision below float32 activations;
+  <fault>  the program with a fault of yardstick/faults.py planted.
 
 The host builds of a seed are made once and reused by its variants.
 """
@@ -26,13 +26,24 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 
 
-def variants(name: str) -> dict:
-    from yardstick import faults
+DEFAULT_CONTROL = {"precision": "bfloat16"}
+
+
+def variants(name: str, conf: dict) -> dict:
+    """The run's `variant` for the configuration file `conf`; a control
+    that the port's Config refuses fails here, before any run."""
+    from yardstick import faults, session
 
     if name == "program":
         return {}
-    if name == "bf16_activations":
-        return {"config": {"precision": "bfloat16"}}
+    if name == "control":
+        over = conf.get("control", DEFAULT_CONTROL)
+        try:
+            session.program_config(conf, over).validate()
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"configuration {conf['name']}: its control {over} "
+                             f"is refused: {e}") from e
+        return {"config": over}
     return {"plant": faults.FAULTS[name]}
 
 
@@ -48,12 +59,13 @@ def readings(cell, seeds, names, device, log=print, workers=None):
     """[{seed, variant, numbers..., correct}] of every seed and variant."""
     from yardstick import session
 
+    chosen = {name: variants(name, cell.config) for name in names}
     out = []
     for seed in seeds:
         cache: dict = {}
         for name in names:
             t = time.perf_counter()
-            res = session.run(cell, seed, 0.0, False, device, variant=variants(name),
+            res = session.run(cell, seed, 0.0, False, device, variant=chosen[name],
                               cache=cache, workers=workers, log=lambda *a, **k: None)
             row = dict(seed=seed, variant=name, correct=res["correct"],
                        seconds=round(time.perf_counter() - t, 1), **res["numbers"])

@@ -237,12 +237,14 @@ def pool_graph(cluster, edge_index, attr):
 
 
 def edge_weight(weight_type, edge_index, stored, x, wei_param):
-    """The host's affinity of the shipped types (0, 1, 2, 10)."""
+    """The host's affinity of the shipped types (0, 1, 2, 10).  The learned
+    types (3, 4, 5) score live activations inside the forward; on the host
+    they take the stored weight, as the port's host build does."""
     def gauss(param):
         d = x[edge_index[0]] - x[edge_index[1]]
         return np.exp((d * d).sum(-1) / (-param))
 
-    if weight_type == 0:
+    if weight_type in (0, 3, 4, 5):
         return stored
     if weight_type == 1:
         return gauss(wei_param)

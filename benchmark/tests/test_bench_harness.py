@@ -11,6 +11,9 @@ from yardstick.trace import Trace
 
 ROOT = os.path.dirname(cells.BENCH_DIR)
 SPEC = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+# metrics that read only what a CUDA graph does: its calls, its input
+# copies and the stage stamps inside a captured step
+GRAPH_ONLY = ("graph_run_us", "input_copies", "fwd_ms", "bwd_ms", "opt_ms")
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in SPEC["workloads"]])
@@ -61,7 +64,7 @@ def test_shared_readers_are_found_by_the_name_before_the_dot():
 def test_a_result_line_carries_the_cells_metrics(workload, trace):
     """A whole run on the CPU, on tiny traffic, turned into the result line
     run.py prints: every end-to-end metric of the cell, and every per-layer
-    metric that needs no device trace, is there."""
+    metric that needs neither a device trace nor a CUDA graph, is there."""
     import copy
 
     import torch
@@ -80,7 +83,7 @@ def test_a_result_line_carries_the_cells_metrics(workload, trace):
     assert json.loads(json.dumps(line)) == line
     assert list(line)[-1] == "checks" and line["correct"]
     want = [m["name"] for m in (cell.per_layer if trace else cell.end_to_end)
-            if m["source"] != "device_trace"]
+            if m["source"] != "device_trace" and m["name"].split(".")[0] not in GRAPH_ONLY]
     assert want and all(name in line["metrics"] for name in want), (want, line["metrics"])
     for m in line["metrics"].values():
         assert m["value"] > 0
@@ -96,11 +99,27 @@ def test_import_check_compares_whole_top_level_names(names, found):
     assert imports.forbidden_loaded(names) == found
 
 
+def reference_files() -> list:
+    """Every module under reference/, and every module that a configuration
+    file names as its reference (the cells' and the tests' own)."""
+    import glob
+
+    out = set(glob.glob(os.path.join(cells.BENCH_DIR, "reference", "*.py")))
+    for path in glob.glob(os.path.join(cells.BENCH_DIR, "**", "*.json"), recursive=True):
+        conf = cells.read_json(path)
+        if isinstance(conf, dict) and "reference" in conf:
+            out.add(os.path.join(ROOT, conf["reference"]))
+    return sorted(out)
+
+
 def test_reference_imports_nothing_of_the_program():
     import ast
 
-    for name in ("host.py", "model.py", "judge.py"):
-        tree = ast.parse(open(os.path.join(cells.BENCH_DIR, "reference", name)).read())
+    files = reference_files()
+    assert os.path.join(cells.BENCH_DIR, "reference", "model.py") in files
+    assert os.path.join(cells.BENCH_DIR, "tests", "data", "probe_reference.py") in files
+    for name in files:
+        tree = ast.parse(open(name).read())
         for node in ast.walk(tree):
             mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])

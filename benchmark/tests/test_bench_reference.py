@@ -19,17 +19,20 @@ def _pair(make, args, seed=3):
     return meshes.add_noise(clean, 0.2, seed), clean
 
 
+@pytest.mark.parametrize("edge_weight_type", [10, 4])
 @pytest.mark.parametrize("reorder", [False, True])
 @pytest.mark.parametrize("make, args", SHAPES)
-def test_host_build_equals_the_port(make, args, reorder):
+def test_host_build_equals_the_port(make, args, reorder, edge_weight_type):
+    """Type 4 is learned: on the host, the port and the plain build both
+    take the stored weight."""
     from geobignn_tpu_torch.config import Config
 
     noisy, clean = _pair(make, args)
-    cfg = Config(reorder=reorder, sub_size=10 ** 6)
+    cfg = Config(reorder=reorder, sub_size=10 ** 6, edge_weight_type=edge_weight_type)
     entry = session._program_entry((noisy.points, noisy.fv_indices, clean.points,
                                     clean.fv_indices, cfg.sub_size,
                                     session.build_config_fields(cfg)))[0]
-    hs = host.build(noisy, clean, dict(BC, reorder=reorder))
+    hs = host.build(noisy, clean, dict(BC, reorder=reorder, edge_weight_type=edge_weight_type))
     assert judge.host_mismatch(session.program_structures(entry),
                                judge.reference_structures(hs)) == (0, [])
 

@@ -7,6 +7,8 @@ returns a number or None.  Adding a cell or a metric is adding files and
 entries: no file here names one.  A metric measured alike in several
 kinds of cell (`idle_pct.patch`, `idle_pct.eval`) may share one reader,
 `metrics/<name before the first dot>.py`, where it has no file of its own.
+A configuration file may name the modules that judge it (`reference`,
+`work`, `watch`: yardstick/session.py); they are loaded by path too.
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+import sys
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH_DIR)
 
 
 @dataclasses.dataclass
@@ -54,14 +59,29 @@ def load(workload: str, root: str) -> Cell:
         end_to_end=e2e, per_layer=per_layer)
 
 
+def load_module(path: str):
+    """The module in the file `path` (from the root of the checkout, under
+    benchmark/), loaded once a process."""
+    full = os.path.realpath(os.path.join(ROOT, path))
+    if not full.startswith(os.path.realpath(BENCH_DIR) + os.sep) or not full.endswith(".py"):
+        raise ValueError(f"{path!r} is not a Python file under benchmark/")
+    name = "bench_" + re.sub(r"\W", "_", os.path.relpath(full, os.path.realpath(ROOT)))
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, full)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[name]
+            raise
+    return sys.modules[name]
+
+
 def reader(metric: str):
     """The `read` function of metrics/<metric>.py, or else of the shared
     metrics/<base>.py."""
     path = os.path.join(BENCH_DIR, "metrics", metric + ".py")
     if not os.path.exists(path):
         path = os.path.join(BENCH_DIR, "metrics", metric.split(".")[0] + ".py")
-    mod_spec = importlib.util.spec_from_file_location("bench_metric_" + metric.replace(".", "_"),
-                                                      path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(os.path.relpath(path, ROOT)).read

@@ -1,8 +1,9 @@
 """One run of one cell: set-up, the timed window, the traced window, the judgement.
 
-The program is the port, `geobignn_tpu_torch`; this module is the only
-part of the benchmark that imports it.  Set-up builds the corpus's samples
-with the program's `process_one_mesh` (spread over worker processes), one
+The program is the port, `geobignn_tpu_torch`; this module runs it (the
+faults, the program's counters and a configuration's watch reach into it
+besides).  Set-up builds the corpus's samples with the program's
+`process_one_mesh` (spread over worker processes), one
 `Trainer` over them, loads the benchmark's weights into its model, pads and
 uploads the feed and, for a training mix, runs whole `run_epoch` calls
 until three steps have been taken (the first step runs eagerly and
@@ -16,9 +17,21 @@ trace, CUDA events time every step of the window, and a separate traced
 window of `traced_passes` epochs or passes follows under torch.profiler.
 
 Once the window has closed and the peak memory has been read, the
-program's state is freed and the reference (reference/) works the judged
-samples out again from the raw meshes: host structures, the first three
-steps that run_epoch took, or the eval means.
+program's state is freed and the reference works the judged samples out
+again from the raw meshes: host structures, the first three steps that
+run_epoch took, or the eval means.
+
+Which code judges a configuration, its configuration file says (paths from
+the root of the checkout, each under benchmark/):
+
+  reference  the plain model: param_shapes, precision_of, train_steps,
+             eval_means (default benchmark/reference/model.py);
+  work       step_useful_flops and step_aggregate_bound_s, as in
+             yardstick/work.py (the default);
+  watch      "<path>:<function>", optional: function(trainer) returns an
+             object whose before(k) and after(k) run around each judged
+             call and whose records() (one entry a judged call, in call
+             order) reach the reference as `choices=`, one a judged sample.
 """
 
 from __future__ import annotations
@@ -33,9 +46,12 @@ import time
 import numpy as np
 import torch
 
-from reference import host, judge, model as ref_model
-from yardstick import imports, meshes, weights, work
+from reference import host, judge
+from yardstick import cells, imports, meshes, weights
 from yardstick.trace import traced
+
+DEFAULT_REFERENCE = "benchmark/reference/model.py"
+DEFAULT_WORK = "benchmark/yardstick/work.py"
 
 
 def _span(store: dict, name: str):
@@ -97,6 +113,26 @@ def reference_build_fields(conf: dict) -> dict:
                 pool_step=w["pool_step"], n_levels=w["pool_levels"])
 
 
+def program_config(conf: dict, overrides: dict | None = None):
+    """The port's Config of a configuration file, with `overrides`."""
+    from geobignn_tpu_torch.config import Config
+
+    return Config(**{**conf["config"], **(overrides or {})})
+
+
+def judged_by(conf: dict):
+    """(reference module, work module, watch factory or None) that the
+    configuration file names."""
+    ref = cells.load_module(conf.get("reference", DEFAULT_REFERENCE))
+    counts = cells.load_module(conf.get("work", DEFAULT_WORK))
+    if "watch" not in conf:
+        return ref, counts, None
+    path, _, fn = conf["watch"].partition(":")
+    if not fn:
+        raise ValueError(f"watch {conf['watch']!r}: give it as <path>:<function>")
+    return ref, counts, getattr(cells.load_module(path), fn)
+
+
 # ---------------------------------------------------------------------------
 # what the harness reads of the program's samples
 # ---------------------------------------------------------------------------
@@ -143,8 +179,9 @@ class Recorder:
     `evaluate` makes (`fused_step` or the eager `_step`; the eval graph or
     the eager `_eval_into`) and records what each call was given: the
     sample's index in the feed and the step's rotation seed.  `before(k)`
-    runs before the k-th call; the losses of the first `judged` steps are
-    kept (on the device); with `events`, CUDA events time every call."""
+    runs before the k-th call and `after(k)` after it; the losses of the
+    first `judged` steps are kept (on the device); with `events`, CUDA
+    events time every call."""
 
     def __init__(self, trainer, name: str, index: dict):
         self.trainer, self.name, self.index = trainer, name, index
@@ -152,7 +189,7 @@ class Recorder:
         self.inner = getattr(trainer, name)
         self.idx, self.seeds, self.bounds = [], [], [0]
         self.losses, self.judged = [], 0
-        self.before = None
+        self.before = self.after = None
         self.events = None
         setattr(trainer, name, self)
 
@@ -174,6 +211,8 @@ class Recorder:
         if s0 is not None:  # the eager step returns its metrics; a replay adds them
             self.losses.append(out["loss"].detach().clone() if isinstance(out, dict)
                                else sums - s0)
+        if self.after is not None:
+            self.after(k)
         return out
 
     def close_pass(self) -> None:
@@ -220,7 +259,6 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     overrides, "plant": fn(trainer) -> undo, called once the trainer is
     made}; `cache`, a dict kept across runs of one cell, reuses the host
     builds of a seed."""
-    from geobignn_tpu_torch.config import Config
     from geobignn_tpu_torch.data.dataset import BaseDualDataset
     from geobignn_tpu_torch.train.trainer import Trainer
 
@@ -236,7 +274,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         torch.cuda.reset_peak_memory_stats()
 
     # ---- set-up: the corpus and its host build ---------------------------
-    cfg = Config(**{**conf["config"], **variant.get("config", {})})
+    ref_model, counts, watch_of = judged_by(conf)
+    cfg = program_config(conf, variant.get("config"))
     bc = build_config_fields(cfg)
     cache = {} if cache is None else cache
     # an eval mix may name the training mix whose padded plan it shares
@@ -269,6 +308,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     w0 = weights.make(ref_model.param_shapes(widths), seed, device)
     trainer.model.load_state_dict(w0, strict=True)
     undo = variant["plant"](trainer) if "plant" in variant else None
+    watch = watch_of(trainer) if watch_of is not None else None
     tag = "t" if train else "e"
     names = dict((p, n) for n, p in trainer.model.named_parameters())
     spans["trainer_s"] = time.perf_counter() - t_trainer
@@ -278,9 +318,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     feed = [trainer._get(ds, tag, idx) for idx in range(len(ds))]  # padded, on the device
     real_f = [e[1].n_nodes for e in entries]
     sizes = [(level_sizes(e[0]), level_sizes(e[1])) for e in entries]
-    flops_of = [work.step_useful_flops(sv, sf, widths, train) for sv, sf in sizes]
+    flops_of = [counts.step_useful_flops(sv, sf, widths, train) for sv, sf in sizes]
     opb = 2 if conf.get("aggregate_operands", "bfloat16") == "bfloat16" else 4
-    bound_of = [work.step_aggregate_bound_s(
+    bound_of = [counts.step_aggregate_bound_s(
         sv, sf, [lv.band is not None for lv in s.v.levels],
         [lv.band is not None for lv in s.f.levels], widths, train, opb)
         for (sv, sf), s in zip(sizes, feed)]
@@ -289,6 +329,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     else:
         call = "_eval_program" if on_card else "_eval_into"
     rec = Recorder(trainer, call, {id(s): i for i, s in enumerate(feed)})
+    watched = 3 if train else len(feed)  # the judged steps, or the set-up pass
+
+    def watching(k, when):
+        if watch is not None and k <= watched:
+            getattr(watch, when)(k)
+    rec.before = lambda k: watching(k, "before")
+    rec.after = lambda k: watching(k, "after")
     # the positions and normals of the first forward, which runs eagerly (the
     # capture's warm-up), read by a hook that records nothing into a graph
     seen = []
@@ -317,6 +364,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
                 first["grad"] = grads()
             if k == 4 and "change" not in first:
                 first["change"] = changes()
+            watching(k, "before")
 
         def changes():
             return {n: float(torch.linalg.vector_norm(p.detach().float() - w0[n]))
@@ -329,12 +377,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         first.setdefault("change", changes())
         first["losses"] = [float(v) for v in rec.losses]
         first["rot_seeds"] = rec.seeds[:3]
-        rec.before = None
         answers = []
     else:
         answers = [trainer.evaluate()]
         rec.close_pass()
     hook.remove()
+    rec.before = rec.after = None
     if on_card:
         torch.cuda.synchronize()
     spans["first_pass_s"] = time.perf_counter() - t_first
@@ -398,6 +446,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         counters["traced_agg_bound_s"] = sum(bound_of[i] for i in rec.idx[at:])
     passes_off = rec.passes_off(len(ds), train)
     rec.undo()
+    records = watch.records() if watch is not None else None
+    del watch
 
     # ---- the judgement: free the program, then the reference -------------
     prog_struct = {i: program_structures(entries[i])
@@ -416,6 +466,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
              corpus[i][1].fv_indices, rbc) for i in idx_ref],
             workers if len(idx_ref) > 3 else 1)))
     ref_samples = [cache[(seed, "reference")][i] for i in (judged if train else idx_ref)]
+    mine = {}
+    if records is not None:  # one a judged call; the reference's come in sample order
+        by_sample = dict(zip(rec.idx, records))
+        mine["choices"] = records[:3] if train else [by_sample.get(i) for i in idx_ref]
     bad = []
     for i in idx_ref:
         bad += [f"{corpus[i][2]}:{k}" for k in judge.host_mismatch(
@@ -426,14 +480,15 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     prec = ref_model.precision_of(conf)
     if train:
         ref_losses, ref_g, ref_p, ref_out = ref_model.train_steps(
-            w0, ref_samples, first["rot_seeds"], widths, conf["config"]["lr"], device, prec)
+            w0, ref_samples, first["rot_seeds"], widths, conf["config"]["lr"], device, prec,
+            **mine)
         numbers.update(judge.train_numbers(first["losses"], first["grad"], first["change"],
                                            ref_losses, ref_g, w0, ref_p))
         numbers.update(judge.forward_numbers(seen[0], ref_out))
         numbers["losses"] = first["losses"]
         numbers["ref_losses"] = ref_losses
     else:
-        ref, ref_out = ref_model.eval_means(w0, ref_samples, widths, device, prec)
+        ref, ref_out = ref_model.eval_means(w0, ref_samples, widths, device, prec, **mine)
         numbers.update(judge.eval_numbers(answers, ref))
         numbers.update(judge.forward_numbers(seen[0], ref_out))
     correct, checks = judge.verdict(numbers, cell.limits)
